@@ -1,0 +1,159 @@
+"""Depth -> point cloud -> semantic occupancy grid (the port of
+``soccdpt_tpu/ops/geometry.py``).
+
+Same function as the JAX package, including its two fixes to the
+reference: every batch row voxelizes into its own grid with true
+accumulation, and ``pc_scale``/``pc_shift`` apply per coordinate. The
+accumulation goes through kernel K2 (``kernels/segment_sum.py``).
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.config import CameraConfig, OccupancyConfig
+from ..kernels.segment_sum import segment_sum
+from .resize import resize_nchw
+
+
+def rotation_matrix(
+    angles_deg: Tuple[float, float, float], transpose: bool = False
+) -> np.ndarray:
+    """Combined rotation R = Ra @ Rb @ Rc about x, y, z (degrees);
+    ``transpose`` selects the GT pipeline's convention."""
+    a, b, c = (math.radians(v) for v in angles_deg)
+    ra = np.array([[1, 0, 0], [0, math.cos(a), -math.sin(a)], [0, math.sin(a), math.cos(a)]])
+    rb = np.array([[math.cos(b), 0, math.sin(b)], [0, 1, 0], [-math.sin(b), 0, math.cos(b)]])
+    rc = np.array([[math.cos(c), -math.sin(c), 0], [math.sin(c), math.cos(c), 0], [0, 0, 1]])
+    m = ra @ rb @ rc
+    if transpose:
+        m = ra.T @ rb.T @ rc.T
+    return m.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _const(values: Tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """A small constant tensor, made once per device: a fresh host-to-device
+    copy on every request would stall the host behind the card."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
+def rotate_points(
+    points: torch.Tensor, angles_deg: Tuple[float, float, float], transpose: bool = False
+) -> torch.Tensor:
+    """Rotate (..., 3) points by euler angles (degrees): ``points @ R``."""
+    m = rotation_matrix(angles_deg, transpose)
+    return points @ _const(tuple(map(tuple, m.tolist())), points.device, points.dtype)
+
+
+def unproject_depth(depth: torch.Tensor, camera: CameraConfig) -> torch.Tensor:
+    """(B, H, W) depth -> (B, H, W, 3) camera-frame points,
+    X = (V - cx) Z / fx, Y = (U - cy) Z / fy."""
+    _, H, W = depth.shape
+    u = torch.arange(H, dtype=depth.dtype, device=depth.device)[:, None]
+    v = torch.arange(W, dtype=depth.dtype, device=depth.device)[None, :]
+    x = (v - camera.cx) * depth / camera.fx
+    y = (u - camera.cy) * depth / camera.fy
+    return torch.stack([x, y, depth], dim=-1)
+
+
+def occupancy_slots(
+    points: torch.Tensor,
+    semantics: torch.Tensor,
+    occ: OccupancyConfig,
+    num_classes: int,
+    mode: str = "prob",
+    threshold: float = 0.5,
+):
+    """The segment-sum problem of a voxelization: ``(slot, vals, num_slots)``
+    with ``slot`` (B*N,) int32 in [0, B*cells) or -1 for a dropped row and
+    ``vals`` (B*N, C) f32. Slots fold the batch in: ``b * cells + cell``."""
+    B, N, _ = points.shape
+    gx, gy, gz = occ.grid_size
+    shape_m = _const(tuple(occ.occupancy_shape), points.device, points.dtype)
+    grid = _const(tuple(float(g) for g in occ.grid_size), points.device, points.dtype)
+
+    # non-finite points are zeroed before the cast; the cast truncates
+    # toward zero; the bounds test is strict, 0 < ijk < grid
+    finite = torch.isfinite(points).all(dim=-1)
+    safe = torch.where(finite[..., None], points, torch.zeros_like(points))
+    ijk = (safe / shape_m * grid).to(torch.int32)
+    inb = ((ijk > 0) & (ijk < _const(tuple(occ.grid_size), points.device, torch.int32))).all(-1)
+    valid = finite & inb
+
+    num_cells = gx * gy * gz
+    if B * (num_cells + 1) >= 2**31:
+        raise ValueError(f"batch {B} x grid {num_cells} overflows the int32 slot")
+    lin = (ijk[..., 0] * gy + ijk[..., 1]) * gz + ijk[..., 2]
+    batch_off = torch.arange(B, dtype=torch.int32, device=points.device)[:, None] * num_cells
+    slot = torch.where(valid, lin + batch_off, torch.full_like(lin, -1))
+
+    if mode == "prob":
+        vals = semantics
+    elif mode == "count":
+        vals = (semantics > threshold).to(torch.float32)
+    else:
+        raise ValueError(mode)
+    return slot.reshape(-1), vals.reshape(B * N, num_classes).float(), B * num_cells
+
+
+def points_to_occupancy_grid(
+    points: torch.Tensor,
+    semantics: torch.Tensor,
+    occ: OccupancyConfig,
+    num_classes: int,
+    mode: str = "prob",
+    threshold: float = 0.5,
+) -> torch.Tensor:
+    """Voxelize semantic points into a per-batch occupancy grid.
+
+    points: (B, N, 3) in meters; semantics: (B, N, C) class scores.
+    Returns (B, gx, gy, gz, C) f32 accumulated weights (``mode="prob"``)
+    or counts of scores above ``threshold`` (``mode="count"``).
+    """
+    flat = segment_sum(*occupancy_slots(points, semantics, occ, num_classes, mode, threshold))
+    return flat.reshape(points.shape[0], *occ.grid_size, num_classes)
+
+
+def get_semantic_occupancy(
+    inv_depth: torch.Tensor,
+    segmentation: torch.Tensor,
+    camera: CameraConfig,
+    occ: OccupancyConfig,
+    num_classes: int,
+    compute_occ: bool = False,
+    occ_mode: str = "prob",
+    output_size: Optional[Tuple[int, int]] = None,
+):
+    """inv_depth (B, h, w) and segmentation (B, C, h, w) -> (inv_depth_up
+    (B, H, W), seg_up (B, C, H, W), points (B, H, W, 3), grid or None) at
+    camera resolution (or ``output_size``)."""
+    H, W = output_size if output_size is not None else (camera.height, camera.width)
+    inv_depth_up = resize_nchw(inv_depth, (H, W), "bicubic", align_corners=False)
+    seg_up = resize_nchw(segmentation, (H, W), "nearest")
+    depth = 1.0 / torch.clamp(inv_depth_up, min=1e-8)
+
+    # scale the intrinsics so they stay valid at a reduced output size
+    cam = camera
+    if (H, W) != (camera.height, camera.width):
+        sy, sx = H / camera.height, W / camera.width
+        cam = CameraConfig(
+            fx=camera.fx * sx, fy=camera.fy * sy, cx=camera.cx * sx, cy=camera.cy * sy,
+            width=W, height=H,
+        )
+    points = unproject_depth(depth, cam)
+
+    occupancy_grid = None
+    if compute_occ:
+        pts = points.reshape(points.shape[0], -1, 3)
+        scale = _const(tuple(occ.pc_scale), pts.device, pts.dtype)
+        shift = _const(tuple(occ.pc_shift), pts.device, pts.dtype)
+        pts = rotate_points(pts * scale + shift, occ.correction_angle)
+        sem = seg_up.reshape(seg_up.shape[0], num_classes, -1).transpose(1, 2)
+        occupancy_grid = points_to_occupancy_grid(pts, sem, occ, num_classes, mode=occ_mode)
+    return inv_depth_up, seg_up, points, occupancy_grid
