@@ -1,4 +1,4 @@
-"""Backbone registry (the Swin-V2 family so far).
+"""Backbone registry (the Swin-V2 and ViT/BEiT families so far).
 
 Every backbone is a module whose ``forward(x_nhwc)`` returns the tuple of
 stage feature maps, NHWC. The other families of the JAX package are
@@ -9,6 +9,10 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 SWIN2_NAMES = ("swin2t16_256", "swin2b24_384", "swin2l24_384", "swin2test_64")
+VIT_NAMES = (
+    "vitb16_384", "vitl16_384", "beitb16_384", "beitl16_384", "beitl16_512",
+    "vittest_64", "beittest_64",
+)
 
 
 def make_backbone(
@@ -21,14 +25,19 @@ def make_backbone(
         from .swin2 import make_swin2_backbone
 
         return make_swin2_backbone(name, hooks=hooks, input_size=input_size)
+    if name in VIT_NAMES:
+        from .vit import make_vit_backbone
+
+        return make_vit_backbone(name, hooks=hooks, input_size=input_size)
     raise NotImplementedError(
         f"backbone {name!r} is not ported to soccdpt_torch yet (see ROADMAP.md)"
     )
 
 
 def dpt_extras(name: str) -> dict:
-    """Backbone-specific DPT wiring; the Swin-V2 family needs none."""
-    if name in SWIN2_NAMES:
+    """Backbone-specific DPT wiring; the Swin-V2 and ViT/BEiT families
+    need none."""
+    if name in SWIN2_NAMES or name in VIT_NAMES:
         return {}
     raise NotImplementedError(
         f"backbone {name!r} is not ported to soccdpt_torch yet (see ROADMAP.md)"

@@ -10,7 +10,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import upsample2x_hw
-from .layers import batch_norm_eval_nhwc, conv_nhwc
+from .layers import batch_norm_eval_nhwc, conv3d, conv_nhwc
 
 
 def scaled_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -69,15 +69,37 @@ class IdentityHead(nn.Module):
 
 
 class OccupancyHead(nn.Module):
-    """The occupancy refiner in its identity form (the flagship's
-    ``occupancy_head=False``): (B, gx, gy, gz, C) passes through."""
+    """3-D conv occupancy refiner: (B, gx, gy, gz, C) accumulated grid ->
+    (B, gx, gy, gz, C) probabilities. ``identity`` (the flagship's
+    ``occupancy_head=False``) passes the grid through.
+
+    conv3x3x3(C, 8) -> relu -> 2x2x2 max pool -> conv(8, 16) -> relu ->
+    2x2x2 max pool -> conv(16, 32) -> relu -> conv(32, C) -> f32 logits ->
+    trilinear upsample back to the grid (``align_corners=False``) ->
+    sigmoid. The JAX package evaluates the same function through 2-D
+    convs over a depth-folded layout, a TPU rewrite; here the convs are
+    plain 3-D ones, and the parameter tree (``conv1`` .. ``conv4``) is the
+    same.
+    """
 
     def __init__(self, num_classes: int = 3, identity: bool = True):
         super().__init__()
+        self.identity = identity
         if not identity:
-            raise NotImplementedError(
-                "the 3-D OccupancyHead is not ported to soccdpt_torch yet (see ROADMAP.md)"
-            )
+            self.conv1 = nn.Conv3d(num_classes, 8, 3, padding=1)
+            self.conv2 = nn.Conv3d(8, 16, 3, padding=1)
+            self.conv3 = nn.Conv3d(16, 32, 3, padding=1)
+            self.conv4 = nn.Conv3d(32, num_classes, 3, padding=1)
 
-    def forward(self, g: torch.Tensor) -> torch.Tensor:
-        return g
+    def forward(self, g: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """``dtype`` is the compute dtype of the convs; the logits, the
+        upsample and the sigmoid are f32 either way."""
+        if self.identity:
+            return g
+        x = g.to(dtype).permute(0, 4, 1, 2, 3)  # channels first for the convs
+        x = F.max_pool3d(F.relu(conv3d(self.conv1, x)), 2)
+        x = F.max_pool3d(F.relu(conv3d(self.conv2, x)), 2)
+        x = F.relu(conv3d(self.conv3, x))
+        x = conv3d(self.conv4, x).float()
+        x = F.interpolate(x, size=tuple(g.shape[1:4]), mode="trilinear", align_corners=False)
+        return torch.sigmoid(x).permute(0, 2, 3, 4, 1)

@@ -46,6 +46,23 @@ def conv_nhwc(mod: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+def conv_transpose_nhwc(mod: nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
+    """Apply ``mod`` to an NHWC tensor; returns NHWC."""
+    y = F.conv_transpose2d(
+        x.permute(0, 3, 1, 2), cast_param(mod, "weight", x.dtype), cast_param(mod, "bias", x.dtype),
+        mod.stride, mod.padding, mod.output_padding, mod.groups, mod.dilation,
+    )
+    return y.permute(0, 2, 3, 1)
+
+
+def conv3d(mod: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
+    """Apply ``mod`` to a channels-first (B, C, X, Y, Z) tensor in x's dtype."""
+    return F.conv3d(
+        x, cast_param(mod, "weight", x.dtype), cast_param(mod, "bias", x.dtype),
+        mod.stride, mod.padding, mod.dilation, mod.groups,
+    )
+
+
 def layer_norm_f32(mod: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     y = F.layer_norm(x.float(), mod.normalized_shape, mod.weight, mod.bias, mod.eps)
     return y.to(x.dtype)

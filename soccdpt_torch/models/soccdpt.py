@@ -13,7 +13,7 @@ network runs in ``cfg.compute_dtype``; the geometry tail runs in f32 in
 either case, since kernel K2 accumulates f32 and bf16 coordinates would
 move points by whole voxels.
 
-Only V3, the published flagship, is ported so far.
+Only V3, the published flagship's version, is ported so far.
 """
 from __future__ import annotations
 
@@ -84,7 +84,7 @@ class SOccDPT_V3(nn.Module):
             compute_occ=occ, output_size=output_size,
         )
         if grid is not None:
-            grid = self.occupancy_conv(grid)
+            grid = self.occupancy_conv(grid, compute_dtype(cfg))
         return inv_d, seg_up, points, grid
 
 

@@ -157,3 +157,23 @@ def get_semantic_occupancy(
         sem = seg_up.reshape(seg_up.shape[0], num_classes, -1).transpose(1, 2)
         occupancy_grid = points_to_occupancy_grid(pts, sem, occ, num_classes, mode=occ_mode)
     return inv_depth_up, seg_up, points, occupancy_grid
+
+
+def occupancy_grid_to_points(
+    occupancy_grid, occ: OccupancyConfig, threshold: float = 0.5
+) -> np.ndarray:
+    """Host-side: (gx, gy, gz, C) grid -> (N, 4) [x, y, z, class_id] points
+    in meters, class by class."""
+    if isinstance(occupancy_grid, torch.Tensor):
+        occupancy_grid = occupancy_grid.detach().cpu().numpy()
+    occupancy_grid = np.asarray(occupancy_grid)
+    num_classes = occupancy_grid.shape[3]
+    shape_m = np.asarray(occ.occupancy_shape, np.float32)
+    grid = np.asarray(occ.grid_size, np.float32)
+    idx = np.argwhere(occupancy_grid >= threshold)
+    out = []
+    for c in range(num_classes):
+        ci = idx[idx[:, 3] == c][:, :3]
+        pts = (ci / grid * shape_m).astype(np.float32)
+        out.append(np.concatenate([pts, np.full((len(pts), 1), c, np.float32)], axis=1))
+    return np.concatenate(out, axis=0) if out else np.zeros((0, 4), np.float32)

@@ -26,6 +26,7 @@ def make_serving_fn(
     compute_occ: bool = False,
     output_size: Optional[Tuple[int, int]] = None,
     device: Union[str, torch.device, None] = None,
+    bias_cache_dtype: Optional[torch.dtype] = None,
 ) -> Callable:
     """Build ``serve(frames_u8) -> (inv_depth, seg, points, occ|None)``.
 
@@ -33,13 +34,15 @@ def make_serving_fn(
     any device. ``model`` moves to ``device`` (the card unless ``device``
     says otherwise) and its attention biases are folded from its current
     weights; a later weight load is detected and never served stale
-    (``models/bias_cache.py``).
+    (``models/bias_cache.py``). ``bias_cache_dtype=torch.bfloat16`` stores
+    the folded biases in bf16, which halves what BEiT's attention reads;
+    the default keeps them f32.
     """
     if getattr(model, "cfg", None) != cfg:
         raise ValueError("the model was built for another config")
     dev = resolve_device(device)
     model = model.to(dev).eval()
-    build_inference_cache(model)
+    build_inference_cache(model, cache_dtype=bias_cache_dtype)
     net_w, net_h = cfg.net_size
     dtype = compute_dtype(cfg)
 

@@ -6,11 +6,18 @@ a flax ``{"params": ..., "batch_stats": ...}`` tree maps onto the port's
 state by name, with these layout changes:
 
 * conv ``kernel`` (H, W, I, O) -> ``weight`` (O, I, H, W);
+* 3-D conv ``kernel`` (D, H, W, I, O) -> ``weight`` (O, I, D, H, W);
+* transposed conv ``kernel`` (H, W, I, O) -> ``weight`` (I, O, H, W),
+  flipped along both spatial axes: flax's ``nn.ConvTranspose`` runs a
+  fractionally strided correlation with the stored kernel, torch's
+  ``ConvTranspose2d`` the gradient of a convolution, which is its mirror
+  image;
 * dense ``kernel`` (in, out) -> ``weight`` (out, in);
 * LayerNorm / BatchNorm ``scale`` -> ``weight``;
 * BatchNorm ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` /
   ``running_var``;
-* plain parameters (``q_bias``, ``v_bias``, ``logit_scale``) as they are.
+* plain parameters (``q_bias``, ``v_bias``, ``logit_scale``, ``cls_token``,
+  ``pos_embed``, ``rel_pos_table``, ``gamma_1``, ``gamma_2``) as they are.
 """
 from __future__ import annotations
 
@@ -43,8 +50,12 @@ def _targets(model: nn.Module):
         for pname, t in mod.named_parameters(recurse=False):
             if isinstance(mod, nn.Linear) and pname == "weight":
                 yield t, "params", pre + "kernel", "dense"
+            elif isinstance(mod, nn.ConvTranspose2d) and pname == "weight":
+                yield t, "params", pre + "kernel", "conv_transpose"
             elif isinstance(mod, nn.Conv2d) and pname == "weight":
                 yield t, "params", pre + "kernel", "conv"
+            elif isinstance(mod, nn.Conv3d) and pname == "weight":
+                yield t, "params", pre + "kernel", "conv3d"
             elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)) and pname == "weight":
                 yield t, "params", pre + "scale", None
             else:
@@ -76,6 +87,10 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mod
                 arr = arr.T
             elif layout == "conv":
                 arr = arr.transpose(3, 2, 0, 1)
+            elif layout == "conv3d":
+                arr = arr.transpose(4, 3, 0, 1, 2)
+            elif layout == "conv_transpose":
+                arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
             if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(
                     f"{coll}:{path}: JAX shape {arr.shape} does not fit {tuple(t.shape)}"
@@ -91,8 +106,12 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mod
 def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill ``model`` in place with weights drawn from ``numpy`` seed
     ``seed``: fan-in-scaled normal kernels, small nonzero biases, norm
-    scales near 1, running variances in [0.8, 1.2]. The draws do not
-    depend on the device, so one seed gives one model everywhere."""
+    scales near 1, running variances in [0.8, 1.2], BEiT's LayerScale
+    gammas near their init of 0.1, and its relative-position tables with
+    a standard deviation of 0.5, so that the bias they gather shapes the
+    softmax and an attention that dropped it could not pass a comparison.
+    The draws do not depend on the device, so one seed gives one model
+    everywhere."""
     rng = np.random.default_rng(seed)
 
     def draw(shape, std, mean=0.0):
@@ -101,15 +120,22 @@ def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
     with torch.no_grad():
         for t, coll, path, layout in _targets(model):
             name = path.rsplit(".", 1)[-1]
-            if layout in ("dense", "conv"):
+            if layout in ("dense", "conv", "conv3d"):
                 fan_in = t[0].numel()
                 t.copy_(draw(t.shape, 1.0 / math.sqrt(fan_in)))
+            elif layout == "conv_transpose":
+                # (in, out, k, k) with stride k: one tap per input channel
+                t.copy_(draw(t.shape, 1.0 / math.sqrt(t.shape[0])))
+            elif name == "rel_pos_table":
+                t.copy_(draw(t.shape, 0.5))
+            elif name in ("gamma_1", "gamma_2"):
+                t.copy_(draw(t.shape, 0.02, 0.1))
             elif name == "scale":
                 t.copy_(draw(t.shape, 0.05, 1.0))
             elif name == "logit_scale":
                 t.copy_(draw(t.shape, 0.05, math.log(10.0)))
             elif name == "var":
                 t.copy_(torch.from_numpy(rng.uniform(0.8, 1.2, t.shape).astype(np.float32)))
-            else:  # biases, q/v biases, running means
+            else:  # biases, q/v biases, cls token, pos-embed, running means
                 t.copy_(draw(t.shape, 0.05))
     return build_inference_cache(model)

@@ -258,12 +258,12 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
 
 def test_unported_parts_raise():
     from soccdpt_torch.core.config import ModelConfig
-    from soccdpt_torch.models.heads import OccupancyHead
+    from soccdpt_torch.models.backbones import dpt_extras
     from soccdpt_torch.models.soccdpt import build_model
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_backbone("vitl16_384")
+        make_backbone("swinl12_384")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        dpt_extras("levit_384")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(ModelConfig(model_type="dpt_swin2_test_64", version=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        OccupancyHead(identity=False)
