@@ -11,7 +11,8 @@ Phases, each of which fails the run on any error:
 2. every kernel against its plain PyTorch version on the card, at the
    shapes its served path gives it, with the stated tolerances, and timed
    with CUDA events beside its memory/compute bound and a library
-   yardstick: K1 window attention, K2 segment sum, K6 global attention;
+   yardstick: K1 window attention, K2 segment sum, K6 global attention,
+   K7 its backward;
 3. two served configurations of SOccDPT V3 at full width and depth,
    weights from a numpy seed, 1080x1920 uint8 requests at batch 1 and 2,
    with and without the occupancy grid, through ``make_serving_fn``:
@@ -21,7 +22,15 @@ Phases, each of which fails the run on any error:
    kernels; the card's f32 outputs are held to the same request served on
    the CPU; then bf16 latency per request and a device-time profile. The
    BEiT path also serves one request through the real 3-D occupancy head
-   and one with its folded biases stored in bf16.
+   and one with its folded biases stored in bf16;
+4. training, through ``soccdpt_torch.train.trainer.Trainer`` on a fixed
+   synthetic batch with GT at 1080x1920: ``dpt_beit_large_512`` at full
+   width and depth, batch 2 (K6 forward and K7 backward, 24 launches each
+   per step) and the flagship at batch 3 (K1 twelve times forward per
+   step). For each: one f32 loss and its gradients on the card against the
+   CPU's through the plain versions; five bf16 steps whose loss must stay
+   finite and fall, with the launch counts read around every step; the
+   median step time and a device-time profile of one step.
 
 It prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -43,6 +52,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 K1_F32_ATOL, K1_BF16_ATOL = 2e-5, 5e-2
 K2_RTOL, K2_ONE_CELL_RTOL, K2_ATOL = 1e-5, 1e-4, 1e-5
 K6_F32_TOL, K6_BF16_TOL = 2e-5, 2e-2  # atol = rtol, as tests/test_global_attention.py
+# K7, atol = rtol: that file's bound on the Pallas backward in f32; in bf16
+# the forward's, which covers the rounding of dq, dk, dv and of the output
+# delta is taken from (kernels/global_attention.py, "Rounding, backward")
+K7_F32_TOL, K7_BF16_TOL = 3e-5, 2e-2
 RECORD = {}
 PHASE_SECONDS = {}
 
@@ -314,6 +327,126 @@ def phase_k6(torch, F, ga):
         **{key: main[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "timed": "the 24 launches of one bf16 batch-1 forward of beitl16_512, f32 bias",
         "other_forwards": forwards[1:],
+    }
+
+
+# ---------------------------------------------------------------------------
+# K7: global attention, backward
+# ---------------------------------------------------------------------------
+
+# (B, H, T, d, with a bias): beitl16_512 at batch 1 and 2 (dbias sums the
+# images), vitl16_384 without a bias, and the test config's ragged tiles
+K7_CHECKS = [(1, 16, 1025, 64, True), (2, 16, 1025, 64, True), (1, 16, 577, 64, False),
+             (2, 2, 65, 16, True)]
+K7_BACKWARDS = [
+    ("beitl16_512, f32 bias", (1, 16, 1025, 64), "float32"),
+    ("vitl16_384, no bias", (1, 16, 577, 64), None),
+    ("beitl16_512 at batch 2, f32 bias", (2, 16, 1025, 64), "float32"),
+]
+
+
+def k7_bytes_flops(B, H, T, d, itemsize, bias_itemsize):
+    """q, k, v, g read and dq, dk, dv written once; the bias read and dbias
+    (f32) written once; five products."""
+    nbytes = 7 * B * H * T * d * itemsize
+    if bias_itemsize:
+        nbytes += H * T * T * (bias_itemsize + 4)
+    return nbytes, 10 * B * H * T * T * d
+
+
+def phase_k7(torch, F, ga):
+    checks, worst = [], {"float32": 0.0, "bfloat16": 0.0}
+    for i, (B, H, T, d, with_bias) in enumerate(K7_CHECKS):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, (bias,) = k6_inputs(torch, B, H, T, d,
+                                         torch.float32 if with_bias else None, dtype, seed=20 + i)
+            g = torch.randn(B, H, T, d, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(40 + i)).to(dtype)
+            scale = d ** -0.5
+            got = ga.global_attention_backward(q, k, v, bias, scale, g)
+            torch.cuda.synchronize()
+            want = ga.global_attention_backward_plain(q, k, v, bias, scale, g)
+            name = str(dtype).split(".")[-1]
+            tol = K7_F32_TOL if dtype == torch.float32 else K7_BF16_TOL
+            errs = {}
+            for part, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+                if w is None:
+                    if a is not None:
+                        fail(f"K7 gave a {part} where there is no bias")
+                    continue
+                diff = (a.float() - w.float()).abs()
+                errs[part] = float(diff.max())
+                if not (bool(torch.isfinite(a).all())
+                        and bool((diff <= tol + tol * w.float().abs()).all())):
+                    fail(f"K7 {part} disagrees with its plain version at {B}x{H}x{T}x{d} "
+                         f"bias={with_bias} {name}: max|err| {errs[part]:.3g}")
+            checks.append({"shape": [B, H, T, d], "bias": with_bias, "dtype": name,
+                           "max_abs_err": errs, "atol": tol, "rtol": tol})
+            worst[name] = max(worst[name], *errs.values())
+            log(f"K7 {B}x{H}x{T}x{d} bias={with_bias} {name}: max|err| "
+                + ", ".join(f"{part} {e:.3g}" for part, e in errs.items())
+                + f" (atol = rtol = {tol})")
+
+    # One bf16 batch-1 backward is 24 launches, each block with a bias of its
+    # own: three distinct biases in turn, as for K6. K7 alone is timed: the
+    # output and the row statistics come from a forward made beforehand.
+    backwards = []
+    for label, (B, H, T, d), bias_name in K7_BACKWARDS:
+        bias_dtype = getattr(torch, bias_name) if bias_name else None
+        q, k, v, biases = k6_inputs(torch, B, H, T, d, bias_dtype, torch.bfloat16, seed=29,
+                                    n_bias=3)
+        g = torch.randn(B, H, T, d, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(49)).bfloat16()
+        scale = d ** -0.5
+        fwd = [ga.global_attention_with_lse(q, k, v, b, scale) for b in biases]
+        per_backward = K6_LAUNCHES_PER_FORWARD / len(biases)
+        # the library yardstick: autograd through SDPA, mask cast beforehand
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        masks = [None if b is None else b.to(q.dtype)[None].requires_grad_() for b in biases]
+        outs = [F.scaled_dot_product_attention(ql, kl, vl, attn_mask=m, scale=scale)
+                for m in masks]
+
+        def library():
+            for o, m in zip(outs, masks):
+                torch.autograd.grad(o, (ql, kl, vl) if m is None else (ql, kl, vl, m), g,
+                                    retain_graph=True)
+
+        t = {
+            "ms": per_backward * cuda_ms(torch, lambda: [
+                ga.global_attention_backward(q, k, v, b, scale, g, out=o, lse=l)
+                for b, (o, l) in zip(biases, fwd)], iters=5),
+            "plain_ms": per_backward * cuda_ms(torch, lambda: [
+                ga.global_attention_backward_plain(q, k, v, b, scale, g) for b in biases],
+                iters=3),
+            # autograd's engine is not captured into a graph; at milliseconds a
+            # call the host's launch overhead does not show
+            "library_ms": per_backward * cuda_ms(torch, library, iters=5, graph=False),
+        }
+        nbytes, flops = k7_bytes_flops(B, H, T, d, 2, biases[0].element_size() if bias_name else 0)
+        byte_ms = K6_LAUNCHES_PER_FORWARD * nbytes / HBM_BYTES_PER_S * 1e3
+        flop_ms = K6_LAUNCHES_PER_FORWARD * flops / PEAK_FLOPS["bfloat16"] * 1e3
+        backwards.append({"backward": label, "shape": [B, H, T, d], "bias": bias_name, **t,
+                          "bytes": K6_LAUNCHES_PER_FORWARD * nbytes,
+                          "flops": K6_LAUNCHES_PER_FORWARD * flops,
+                          "bound_ms": max(byte_ms, flop_ms),
+                          "bound_by": "bytes" if byte_ms >= flop_ms else "operations"})
+        log(f"K7 time, 24 launches, bf16, {label}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, sdpa backward {t['library_ms']:.4f} ms, bound "
+            f"{max(byte_ms, flop_ms):.4f} ms ({backwards[-1]['bound_by']})")
+        del fwd, outs, masks
+    RECORD["k7"] = {"checks": checks, "backwards": backwards}
+    main = backwards[0]
+    return {
+        "name": "global_attention_backward",
+        "route": "cuda",
+        "source": "soccdpt_torch/csrc/global_attention_bwd.cu",
+        "replaces": "soccdpt_tpu/ops/global_attention.py:315",
+        "max_abs_err": worst["float32"],
+        "max_abs_err_bf16": worst["bfloat16"],
+        "tolerance": {"float32": K7_F32_TOL, "bfloat16": K7_BF16_TOL},
+        **{key: main[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "timed": "the 24 launches of one bf16 batch-1 backward of beitl16_512, f32 bias",
+        "other_backwards": backwards[1:],
     }
 
 
@@ -673,6 +806,207 @@ def phase_serving(torch, card, label):
     return launches, problem
 
 
+# ---------------------------------------------------------------------------
+# the trained configurations
+# ---------------------------------------------------------------------------
+
+# launches per training step of each attention kernel (K1's backward is a
+# recompute through its plain version and launches nothing)
+TRAINED = {
+    "beit": {"model_type": "dpt_beit_large_512", "batch": 2, "encoder_percentage": 1.0,
+             "per_step": {"window_attention": 0, "global_attention": 24,
+                          "global_attention_backward": 24}},
+    "swin": {"model_type": "dpt_swin2_tiny_256", "batch": 3, "encoder_percentage": 0.5,
+             "per_step": {"window_attention": 12, "global_attention": 0,
+                          "global_attention_backward": 0}},
+}
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-4  # of the five bf16 steps; the config's default of 1e-5 moves little in five
+TRAIN_LOSS_RTOL = 1e-4  # card against CPU, f32, TF32 off
+# every leaf's |g_card - g_cpu| / |g_cpu| (2-norms): two f32 stacks that sum
+# in other orders through up to 24 blocks and a 1080p loss. Most leaves
+# agree to 1e-5 (the median is printed). The leaves behind an attention bias
+# (BEiT's tables, Swin-V2's CPB MLPs) are the worst, at a few 1e-3: softmax
+# ignores a shift of a row's bias, so their gradients are sums of terms that
+# cancel, and f32 rounding is measured against what is left. A wrong
+# gradient is off by its own size.
+TRAIN_GRAD_REL_LIMIT = 1e-2
+
+
+def loss_and_grads(trainer, batch):
+    """One loss of ``batch`` and its gradients, left in ``.grad``, with the
+    dropout and the stochastic depth off (the card and the CPU draw
+    different numbers) and BatchNorm on batch statistics."""
+    from soccdpt_torch.train.patchwise import select_trainable
+
+    model = trainer.model
+    model.seg_head.dropout_rate = 0.0
+    backbone = model.depth_net.backbone
+    if hasattr(backbone, "drop_path_rates"):
+        backbone.drop_path_rates = [0.0] * len(backbone.drop_path_rates)
+    select_trainable(model, trainer.masks[0])
+    model.zero_grad(set_to_none=True)
+    loss, _ = trainer.loss(trainer.to_device_batch(batch))
+    loss.backward()
+    return float(loss.detach())
+
+
+def phase_training(torch, card, label):
+    from soccdpt_torch.core.config import ModelConfig, TrainConfig
+    from soccdpt_torch.data.synthetic import make_batch
+    from soccdpt_torch.kernels import global_attention as ga
+    from soccdpt_torch.kernels import window_attention as wa
+    from soccdpt_torch.train.trainer import Trainer
+    from soccdpt_torch.weights import named_flax_params
+
+    spec = TRAINED[label]
+    record = RECORD.setdefault(f"train_{label}", {"model_type": spec["model_type"],
+                                                  "batch": spec["batch"]})
+    counters = {"window_attention": wa.window_attention,
+                "global_attention": ga.global_attention,
+                "global_attention_backward": ga.global_attention_backward}
+    mcfg = ModelConfig(model_type=spec["model_type"], version=3)
+    net_w, net_h = mcfg.net_size
+    batch = make_batch(0, spec["batch"], (1080, 1920), (net_h, net_w), mcfg.num_classes)
+    base = dict(batch_size=spec["batch"], encoder_percentage=spec["encoder_percentage"],
+                patchwise_percentage=1.0, learning_rate=TRAIN_LR)
+
+    # --- (a) f32: one loss and its gradients, card against CPU, TF32 off ------
+    set_tf32(torch, False)
+    t0 = time.perf_counter()
+    trainer = Trainer(mcfg, TrainConfig(**base))
+    trainer.init_state(seed=0)
+    log(f"train {label}: {spec['model_type']} built in {time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for p in trainer.model.parameters()) / 1e6:.1f} M weights, "
+        f"{sum(trainer.masks[0].values())} of {len(trainer.masks[0])} leaves trainable")
+    loss_card = loss_and_grads(trainer, batch)
+    torch.cuda.synchronize()
+    cpu = Trainer(mcfg, TrainConfig(**base), device="cpu")
+    cpu.masks, cpu.model = trainer.masks, copy.deepcopy(trainer.model).cpu()
+    t0 = time.perf_counter()
+    loss_cpu = loss_and_grads(cpu, batch)
+    cpu_seconds = time.perf_counter() - t0
+    depth = getattr(trainer.model.depth_net.backbone.cfg, "depth", None)
+    log(f"train {label}: CPU loss and gradients in {cpu_seconds:.1f} s at full width and "
+        f"depth{f' ({depth} blocks)' if depth else ''}")
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    worst, rels = ("", 0.0), []
+    for (path, p), (_, pc) in zip(named_flax_params(trainer.model), named_flax_params(cpu.model)):
+        if (p.grad is None) != (pc.grad is None):
+            fail(f"train {label}: {path} has a gradient on one device only")
+        if p.grad is None:
+            continue
+        ref = float(pc.grad.norm())
+        if not ref > 0:
+            fail(f"train {label}: the CPU gradient of {path} is zero")
+        rel = float((p.grad.cpu() - pc.grad).norm()) / ref
+        rels.append(rel)
+        if len(rels) == 1 or not rel <= worst[1]:  # a NaN takes the lead and fails below
+            worst = (path, rel)
+    compared, median_rel = len(rels), float(np.median(rels))
+    record["parity_f32"] = {"loss_card": loss_card, "loss_cpu": loss_cpu, "loss_rel_err": loss_rel,
+                            "loss_rtol": TRAIN_LOSS_RTOL, "leaves_compared": compared,
+                            "worst_leaf": worst[0], "worst_leaf_rel_err": worst[1],
+                            "median_leaf_rel_err": median_rel,
+                            "grad_rel_limit": TRAIN_GRAD_REL_LIMIT, "cpu_seconds": cpu_seconds}
+    log(f"train {label} f32, card vs CPU: loss {loss_card:.6f} vs {loss_cpu:.6f} (rel "
+        f"{loss_rel:.3g}, limit {TRAIN_LOSS_RTOL}); {compared} leaves' gradients, worst "
+        f"{worst[0]} at {worst[1]:.3g} of its norm (limit {TRAIN_GRAD_REL_LIMIT}), median "
+        f"{median_rel:.3g}")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and worst[1] <= TRAIN_GRAD_REL_LIMIT and compared > 0):
+        fail(f"train {label}: the card's f32 loss or gradients left the CPU's")
+    del trainer, cpu
+    torch.cuda.empty_cache()
+    set_tf32(torch, True)
+
+    # --- (b) the main path: five bf16 steps on that batch, counts from 0 ------
+    trainer = Trainer(mcfg, TrainConfig(amp=True, **base))
+    state = trainer.init_state(seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    launches = {name: 0 for name in counters}
+    losses, times = [], []
+    for step in range(TRAIN_STEPS):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        for name, fn in counters.items():
+            if fn.launches != spec["per_step"][name]:
+                fail(f"train {label}: {name} ran {fn.launches} times in step {step}, expected "
+                     f"{spec['per_step'][name]}")
+            launches[name] += fn.launches
+    log(f"train {label} bf16, {TRAIN_STEPS} steps at lr {TRAIN_LR}: losses "
+        f"{[round(x, 4) for x in losses]}; launches {launches}")
+    if not all(np.isfinite(losses)):
+        fail(f"train {label}: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train {label}: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    if state.step != TRAIN_STEPS or state.count != TRAIN_STEPS:
+        fail(f"train {label}: the state counts {state.step} steps")
+
+    # --- (c) step time, and the device time of one step by kernel ------------
+    # the first step also builds the allocator's pools: the median leaves it out.
+    # A step takes the batch from the host (masks narrowed to uint8, pinned,
+    # copied); the same steps on a batch that is already on the card show what
+    # of the step time that is.
+    t0 = time.perf_counter()
+    device_batch = trainer.to_device_batch(batch)
+    torch.cuda.synchronize()
+    to_device_ms = (time.perf_counter() - t0) * 1e3
+    on_device = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, device_batch, gen)
+        torch.cuda.synchronize()
+        on_device.append((time.perf_counter() - t0) * 1e3)
+    if not np.isfinite(float(metrics["loss"])):
+        fail(f"train {label}: the loss left the finite numbers after {state.step} steps")
+    record["steps_bf16"] = {"losses": losses, "learning_rate": TRAIN_LR, "step_ms": times,
+                            "median_step_ms": float(np.median(times[1:])),
+                            "to_device_batch_ms": to_device_ms,
+                            "step_ms_batch_on_device": on_device,
+                            "median_step_ms_batch_on_device": float(np.median(on_device)),
+                            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(state, device_batch, gen)
+        torch.cuda.synchronize()
+    rows = [(ev.key, ev.device_time_total, ev.count)
+            for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(us for _, us, _ in rows) / 1e3
+    marks = {"window_attention": "window_attention_kernel",
+             "global_attention": "global_attention_kernel",
+             "global_attention_backward": "global_attention_bwd"}
+    by_kernel = {name: sum(us for k, us, _ in rows if mark in k) / 1e3
+                 for name, mark in marks.items()}
+    record["step_kernel_device_ms"] = by_kernel
+    record["device_ms_per_step"] = device_ms
+    record["launches_per_step"] = sum(c for _, _, c in rows)
+    record["profile_us_per_step"] = [
+        {"name": k[:120], "device_us": us, "calls": c} for k, us, c in rows[:40]]
+    median = record["steps_bf16"]["median_step_ms"]
+    resident = record["steps_bf16"]["median_step_ms_batch_on_device"]
+    log(f"train {label} bf16 batch {spec['batch']}: {median:.3f} ms median step from a host "
+        f"batch (steps {[round(t, 1) for t in times]}; the host-to-device batch alone "
+        f"{to_device_ms:.1f} ms), {resident:.3f} ms with the batch on the card (steps "
+        f"{[round(t, 1) for t in on_device]}), peak memory "
+        f"{record['steps_bf16']['peak_memory_gb']:.2f} GB ({card}); one profiled step: "
+        f"{device_ms:.3f} ms of device time in {record['launches_per_step']} launches, busy "
+        f"share {device_ms / resident:.3f} of the step with the batch on the card; by kernel "
+        + ", ".join(f"{n} {ms:.3f} ms ({ms / device_ms:.1%})" for n, ms in by_kernel.items())
+        + "; top device time:")
+    for k, us, c in rows[:12]:
+        log(f"  {us:9.1f} us  x{c:5d}  {k[:90]}")
+    return launches
+
+
 def main():
     if not (HERE / "soccdpt_torch").is_dir():
         fail("soccdpt_torch/ is not beside this script: run it from a checkout of the repo")
@@ -695,7 +1029,8 @@ def main():
     with phase("build"):
         seconds = _build.build_all()
         log(f"kernels built: {seconds}")
-        for name in ("window_attention", "segment_sum", "global_attention"):
+        for name in ("window_attention", "segment_sum", "global_attention",
+                     "global_attention_bwd"):
             for line in _build.build_log(name).splitlines():
                 if "spill" in line and " 0 bytes spill stores" not in line:
                     log(f"  ptxas {name}: {line.strip()}")
@@ -706,6 +1041,8 @@ def main():
         k1 = phase_k1(torch, F, wa)
     with phase("K6 against its plain version"):
         k6 = phase_k6(torch, F, ga)
+    with phase("K7 against its plain version"):
+        k7 = phase_k7(torch, F, ga)
     with phase("serving dpt_swin2_tiny_256"):
         swin_launches, problem = phase_serving(torch, card, "swin")
     torch.cuda.empty_cache()
@@ -716,18 +1053,33 @@ def main():
     set_tf32(torch, False)
     with phase("K2 against its plain version"):
         k2 = phase_k2(torch, ss, problem)
-    kernels = [k1, k2, k6]
+    torch.cuda.empty_cache()
+    with phase("training dpt_beit_large_512"):
+        train_beit = phase_training(torch, card, "beit")
+    torch.cuda.empty_cache()
+    with phase("training dpt_swin2_tiny_256"):
+        train_swin = phase_training(torch, card, "swin")
+    kernels = [k1, k2, k6, k7]
     # each kernel's time inside a served request, from the profile of the
-    # configuration whose attention it is (K2: the flagship's)
+    # configuration whose attention it is (K2: the flagship's), and inside a
+    # training step
     served_in = {"window_attention": "swin", "segment_sum": "swin", "global_attention": "beit"}
+    trained_in = {"window_attention": "train_swin", "global_attention": "train_beit",
+                  "global_attention_backward": "train_beit"}
     for k in kernels:
-        by_path = {"swin": swin_launches[k["name"]], "beit": beit_launches[k["name"]]}
+        name = k["name"]
+        by_path = {"serve_swin": swin_launches.get(name, 0),
+                   "serve_beit": beit_launches.get(name, 0),
+                   "train_beit": train_beit.get(name, 0), "train_swin": train_swin.get(name, 0)}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
-        k["served_device_ms"] = RECORD[served_in[k["name"]]][
-            "served_kernel_device_ms_b1_occ"][k["name"]]
+        if name in served_in:
+            k["served_device_ms"] = RECORD[served_in[name]][
+                "served_kernel_device_ms_b1_occ"][name]
+        if name in trained_in:
+            k["train_step_device_ms"] = RECORD[trained_in[name]]["step_kernel_device_ms"][name]
         if k["launches"] < 1:
-            fail(f"{k['name']} was launched no time on the main paths")
+            fail(f"{name} was launched no time on the main paths")
     RECORD.update({"device": kind, "nvidia_smi": card, "kernels": kernels,
                    "build_seconds": seconds, "phase_seconds": PHASE_SECONDS,
                    "seconds": time.perf_counter() - t_start})

@@ -1,7 +1,7 @@
-"""Configuration dataclasses: camera, occupancy grid and model.
+"""Configuration dataclasses: camera, occupancy grid, model and training.
 
-The port's own copy of the serving half of ``soccdpt_tpu/core/config.py``
-(``CameraConfig``, ``OccupancyConfig``, ``MODEL_TYPES``, ``ModelConfig``),
+The port's own copy of ``soccdpt_tpu/core/config.py``'s ``CameraConfig``,
+``OccupancyConfig``, ``MODEL_TYPES``, ``ModelConfig`` and ``TrainConfig``,
 so the port never imports the JAX package. Field names and defaults are
 the same, so a config built for one package reads the same in the other.
 """
@@ -87,3 +87,44 @@ class ModelConfig:
         """(width, height) of the network input."""
         _, w, h = MODEL_TYPES[self.model_type]
         return (w, h)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters, with the field names and defaults of the
+    JAX package's ``TrainConfig``. Its ``mesh_shape``, ``mesh_axes``, ``tp``
+    and ``tp_min_size`` are left out: the port trains on one card so far,
+    and data and tensor parallelism are still to be ported (ROADMAP.md,
+    queue 1 item 14)."""
+
+    epochs: int = 15
+    batch_size: int = 3
+    learning_rate: float = 1e-5
+    val_percent: float = 0.05
+    save_checkpoint: bool = True
+    amp: bool = False  # bf16 compute, f32 master weights, no loss scaling
+    weight_decay: float = 0.0
+    encoder_percentage: float = 0.5
+    patchwise_percentage: float = 1.0
+    # "inplace": sequential patch steps, each seeing the last one's update;
+    # "snapshot": every patch trained from the same start weights, the
+    # updates applied together at the end
+    patchwise_mode: str = "inplace"
+    loss_weights: Tuple[float, float] = (0.5, 0.5)  # (depth, seg)
+    dataset_percentage: float = 1.0
+    compute_scale_and_shift: bool = True
+    sigmoid: bool = False
+    load: Optional[str] = None
+    load_depth: Optional[str] = None
+    load_seg: Optional[str] = None
+    dataset: str = "bdd"
+    base_path: str = "~/Datasets/Depth_Dataset_Bengaluru"
+    checkpoint_dir: str = "checkpoints"
+    project_name: str = "SOccDPT"
+    seed: int = 0
+    # subsample the GT tensors k-fold per axis on the host before the copy
+    # to the device (k^2 fewer bytes); 1 keeps the full-resolution GT
+    gt_downscale: int = 1
+    remat_backbone: bool = False  # recompute backbone blocks in the backward
+    log_histograms: bool = False  # per-leaf weight stats at eval rounds
+    log_visuals: bool = True  # eval-round visualization panels

@@ -10,6 +10,9 @@
 // f32, the bias f32 or bf16 whatever the inputs are; scores, softmax and
 // both sums are f32; the probabilities are rounded to the input type
 // before P.V; the output has the input's type.
+// On request it also writes each row's log-sum-exp of its scores, (B, H, T)
+// f32, which the backward (global_attention_bwd.cu) starts from; serving
+// passes no pointer and nothing is written.
 //
 // Design (simple and right first, on CUDA cores). The TPU kernel holds a
 // head's whole K and V in fast memory and takes one full-row softmax. At
@@ -53,133 +56,16 @@
 // on CUDA cores from shared memory and is far from either bound; wgmma
 // and TMA are a later change.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "global_attention_common.cuh"
 
 namespace {
-
-constexpr int TY = 8;             // rows of 16 threads: ty picks rows, tx keys / columns
-constexpr int THREADS = 16 * TY;
-constexpr int RPT = 4;            // query rows per thread
-constexpr int BQ = TY * RPT;      // query rows per block
-constexpr int BK = 64;            // keys per tile
-constexpr int LDP = BK + 4;       // padded row of the weight tile
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// One 16-byte load of a row (4 f32 or 8 bf16 values), widened to f32.
-template <typename T> struct Chunk;
-template <> struct Chunk<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void load(const float* src, float* f) {
-    const float4 t = *reinterpret_cast<const float4*>(src);
-    f[0] = t.x; f[1] = t.y; f[2] = t.z; f[3] = t.w;
-  }
-};
-template <> struct Chunk<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* src, float* f) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) f[i] = __bfloat162float(h[i]);
-  }
-};
-
-// ROWS rows of D values from device memory (16-byte aligned) to shared
-// memory as f32, rows padded to D+4; rows from live_rows on become zeros.
-// All of a thread's loads are issued before its first store.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int live_rows,
-                                           float* __restrict__ dst) {
-  constexpr int N = Chunk<T>::N;
-  constexpr int CPR = D / N;  // chunks per row
-  constexpr int CHUNKS = ROWS * CPR;
-  constexpr int PER_THREAD = (CHUNKS + THREADS - 1) / THREADS;
-  float f[PER_THREAD][N];
-#pragma unroll
-  for (int t = 0; t < PER_THREAD; ++t) {
-    const int i = t * THREADS + threadIdx.x;
-    const int r = i / CPR;
-    const int c = (i - r * CPR) * N;
-    if (i < CHUNKS && r < live_rows) {
-      Chunk<T>::load(src + (size_t)r * D + c, f[t]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < N; ++e) f[t][e] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < PER_THREAD; ++t) {
-    const int i = t * THREADS + threadIdx.x;
-    const int r = i / CPR;
-    const int c = (i - r * CPR) * N;
-    if (i < CHUNKS) {
-#pragma unroll
-      for (int g = 0; g < N / 4; ++g)
-        *reinterpret_cast<float4*>(dst + r * (D + 4) + c + 4 * g) =
-            make_float4(f[t][4 * g], f[t][4 * g + 1], f[t][4 * g + 2], f[t][4 * g + 3]);
-    }
-  }
-}
-
-// reduce over the 16 lanes that share a row (a half-warp)
-__device__ __forceinline__ float row_max(float x) {
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// bias_kind: 1 = f32, 2 = bf16
-__device__ __forceinline__ float load_bias(const void* bias, int bias_kind, size_t i) {
-  if (bias_kind == 1) return static_cast<const float*>(bias)[i];
-  return __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[i]);
-}
-
-// the DC = D/16 output columns of lane tx: one run of DC below 4, else
-// runs of 4 that lie 64 apart (so a half-warp reads 256 contiguous bytes)
-template <int DC> __device__ __forceinline__ int col_of(int tx, int cc) {
-  if constexpr (DC < 4) return DC * tx + cc;
-  else return (cc >> 2) * 64 + 4 * tx + (cc & 3);
-}
-
-template <int DC>
-__device__ __forceinline__ void load_cols(const float* row, int tx, float* vv) {
-  if constexpr (DC == 1) {
-    vv[0] = row[tx];
-  } else if constexpr (DC == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(row + 2 * tx);
-    vv[0] = t.x;
-    vv[1] = t.y;
-  } else {
-#pragma unroll
-    for (int g = 0; g < DC / 4; ++g) {
-      const float4 t = *reinterpret_cast<const float4*>(row + 64 * g + 4 * tx);
-      vv[4 * g + 0] = t.x;
-      vv[4 * g + 1] = t.y;
-      vv[4 * g + 2] = t.z;
-      vv[4 * g + 3] = t.w;
-    }
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 global_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const void* __restrict__ bias,
-                        int bias_kind, T* __restrict__ out, int H, int n, float scale) {
+                        int bias_kind, T* __restrict__ out, float* __restrict__ lse, int H,
+                        int n, float scale) {
   constexpr int LD = D + 4;
   constexpr int DC = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -297,19 +183,23 @@ global_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
-    const float inv = 1.f / row_sum(l[r]);
+    const float sum = row_sum(l[r]);
+    const float inv = 1.f / sum;
     const int row = q0 + ty + TY * r;
     if (row < n) {
       T* op = out + base + (size_t)row * D;
 #pragma unroll
       for (int cc = 0; cc < DC; ++cc) op[col_of<DC>(tx, cc)] = from_f<T>(o[r][cc] * inv);
+      // the row's log-sum-exp, for the backward; asked for only when a
+      // gradient will be
+      if (lse != nullptr && tx == 0) lse[((size_t)b * H + h) * (size_t)n + row] = m[r] + logf(sum);
     }
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   int bias_kind, void* out, int B, int H, int n, float scale,
+                   int bias_kind, void* out, float* lse, int B, int H, int n, float scale,
                    cudaStream_t stream) {
   const size_t smem = (size_t)(BQ * (D + 4) + 2 * BK * (D + 4) + BQ * LDP) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(global_attention_kernel<T, D>,
@@ -319,19 +209,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   // the image index varies fastest, so blocks that share a bias tile run together
   dim3 grid((unsigned)B, (unsigned)((n + BQ - 1) / BQ), (unsigned)H);
   global_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, bias, bias_kind, (T*)out, H, n, scale);
+      (const T*)q, (const T*)k, (const T*)v, bias, bias_kind, (T*)out, lse, H, n, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v, const void* bias,
-                     int bias_kind, void* out, int B, int H, int n, float scale,
+                     int bias_kind, void* out, float* lse, int B, int H, int n, float scale,
                      cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, bias, bias_kind, out, B, H, n, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, bias, bias_kind, out, B, H, n, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, bias, bias_kind, out, B, H, n, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, bias, bias_kind, out, B, H, n, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, bias, bias_kind, out, lse, B, H, n, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, bias, bias_kind, out, lse, B, H, n, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, bias, bias_kind, out, lse, B, H, n, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, bias, bias_kind, out, lse, B, H, n, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -343,9 +233,10 @@ extern "C" {
 const char* soccdpt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // q, k, v, out: (B, H, n, D) contiguous, 16-byte aligned, f32 or bf16 (is_bf16);
-// bias: (H, n, n) contiguous, NULL (bias_kind 0), f32 (1) or bf16 (2).
+// bias: (H, n, n) contiguous, NULL (bias_kind 0), f32 (1) or bf16 (2);
+// lse: (B, H, n) f32 for each row's log-sum-exp of its scores, or NULL.
 int soccdpt_global_attention(const void* q, const void* k, const void* v, const void* bias,
-                             void* out, int B, int H, int n, int D, int is_bf16,
+                             void* out, void* lse, int B, int H, int n, int D, int is_bf16,
                              int bias_kind, float scale, void* stream) {
   if (B == 0 || H == 0 || n == 0) return (int)cudaGetLastError();
   if (bias_kind < 0 || bias_kind > 2 || (bias_kind != 0 && bias == nullptr))
@@ -353,8 +244,8 @@ int soccdpt_global_attention(const void* q, const void* k, const void* v, const 
   if (H > 65535 || (n + BQ - 1) / BQ > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = is_bf16
-      ? dispatch<__nv_bfloat16>(D, q, k, v, bias, bias_kind, out, B, H, n, scale, s)
-      : dispatch<float>(D, q, k, v, bias, bias_kind, out, B, H, n, scale, s);
+      ? dispatch<__nv_bfloat16>(D, q, k, v, bias, bias_kind, out, (float*)lse, B, H, n, scale, s)
+      : dispatch<float>(D, q, k, v, bias, bias_kind, out, (float*)lse, B, H, n, scale, s);
   return (int)err;
 }
 

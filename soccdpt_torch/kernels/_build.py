@@ -5,9 +5,10 @@ Each ``soccdpt_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 takes seconds) and loaded with ``ctypes``. All sources build in
 parallel, one ``nvcc`` process each. Libraries go to
 ``build/soccdpt_torch_kernels/`` at the root of the checkout, named by a
-hash of their source so an edited source is never served by an old
-library. Every C entry point returns ``cudaGetLastError()`` after its
-launch; :func:`check` turns a nonzero code into an exception.
+hash of their source and of the headers (``csrc/*.cuh``) so an edited
+source is never served by an old library. Every C entry point returns
+``cudaGetLastError()`` after its launch; :func:`check` turns a nonzero
+code into an exception.
 """
 from __future__ import annotations
 
@@ -45,8 +46,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, float]:

@@ -21,6 +21,11 @@ rounding, not to bits.
 ``segment_sum`` launches the kernel for CUDA tensors and runs
 ``segment_sum_plain`` for CPU tensors; ``segment_sum.launches`` counts
 kernel launches.
+
+Gradient. The kernel has no backward yet (a gather of the cotangent at
+each row's slot, which comes with occupancy training). Until then a call
+on CUDA values that need a gradient raises ``NotImplementedError``
+(:func:`check_no_grad`) rather than cut the graph without a word.
 """
 from __future__ import annotations
 
@@ -38,7 +43,18 @@ def segment_sum_plain(lin: torch.Tensor, vals: torch.Tensor, num_slots: int) -> 
     return out.index_add_(0, lin[keep].long(), vals[keep].float())
 
 
+def check_no_grad(vals: torch.Tensor) -> None:
+    """Raise when ``vals`` would need a gradient through the kernel."""
+    if torch.is_grad_enabled() and vals.requires_grad:
+        raise NotImplementedError(
+            "the segment-sum kernel has no backward yet: call it under "
+            "torch.no_grad() or on detached values (its gradient comes with "
+            "occupancy training)"
+        )
+
+
 def _launch(lin: torch.Tensor, vals: torch.Tensor, num_slots: int) -> torch.Tensor:
+    check_no_grad(vals)
     if lin.dim() != 1 or vals.dim() != 2 or vals.shape[0] != lin.shape[0]:
         raise ValueError(
             f"segment sum takes lin (N,) and vals (N, C), got {tuple(lin.shape)} "

@@ -22,7 +22,17 @@ shared memory, which costs one extra L2 read per tile of queries
 
 ``window_attention`` launches the kernel for CUDA tensors and runs
 ``window_attention_plain`` for CPU tensors; ``window_attention.launches``
-counts kernel launches.
+counts kernel launches (forward only: the backward launches none).
+
+Gradient. The JAX package's backward of this kernel is no Pallas kernel:
+``_pwa_bwd`` re-derives the attention matrix through ``xla_reference``
+with plain XLA ops and lets autodiff give dq, dk, dv, dtau and dB (the
+mask gets none). The port mirrors that design: when an input needs a
+gradient the call is a ``torch.autograd.Function`` whose forward is the
+CUDA kernel and whose backward recomputes through
+``window_attention_plain`` under ``torch.enable_grad()`` and returns its
+autograd gradients. A hand-written backward kernel belongs to this
+kernel's redesign for the tensor cores.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -121,6 +132,36 @@ def _launch(q, k, v, scale, bias, mask):
     return out
 
 
+def _forward(q, k, v, scale, bias, mask):
+    if q.device.type == "cuda":
+        return _launch(q, k, v, scale, bias, mask)
+    return window_attention_plain(q, k, v, scale, bias, mask)
+
+
+class _WindowAttention(torch.autograd.Function):
+    """Forward: the kernel (the plain version on CPU tensors). Backward: a
+    recompute through the plain version, as the JAX package's."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, bias, mask):
+        ctx.save_for_backward(q, k, v, scale, bias, mask)
+        return _forward(q, k, v, scale, bias, mask)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        *inputs, mask = ctx.saved_tensors
+        needed = [i for i in range(5) if ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(i in needed) for i, t in enumerate(inputs)]
+            out = window_attention_plain(*leaves, mask)
+            grads = torch.autograd.grad(out, [leaves[i] for i in needed], g.to(out.dtype))
+        result = [None] * 6
+        for i, grad in zip(needed, grads):
+            result[i] = grad
+        return tuple(result)
+
+
 def window_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -130,12 +171,14 @@ def window_attention(
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fused window attention: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Returns (Bw, H, N, d) in q's dtype."""
-    if q.device.type == "cuda":
-        return _launch(q, k, v, scale, bias, mask)
-    if q.device.type != "cpu":
+    version for CPU tensors. Returns (Bw, H, N, d) in q's dtype. When an
+    input needs a gradient the call is recorded for autograd (see the
+    module docstring); otherwise it is the bare forward."""
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"window attention runs on cuda or cpu, not {q.device}")
-    return window_attention_plain(q, k, v, scale, bias, mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, scale, bias)):
+        return _WindowAttention.apply(q, k, v, scale, bias, mask)
+    return _forward(q, k, v, scale, bias, mask)
 
 
 window_attention.launches = 0

@@ -1,8 +1,9 @@
 """Backbone registry (the Swin-V2 and ViT/BEiT families so far).
 
-Every backbone is a module whose ``forward(x_nhwc)`` returns the tuple of
-stage feature maps, NHWC. The other families of the JAX package are
-still to be ported (ROADMAP.md, queue 1).
+Every backbone is a module whose ``forward(x_nhwc, generator=None)``
+returns the tuple of stage feature maps, NHWC; ``generator`` feeds what a
+backbone draws at random in training mode. The other families of the JAX
+package are still to be ported (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -19,12 +20,15 @@ def make_backbone(
     name: str,
     hooks: Optional[Sequence[int]] = None,
     input_size: Optional[Tuple[int, int]] = None,
+    remat: bool = False,
 ):
-    """Return (backbone module factory, stage channel widths)."""
+    """Return (backbone module factory, stage channel widths). ``remat``
+    recomputes each Swin-V2 block in the backward pass; the ViT/BEiT trunk
+    takes none, as in the JAX package."""
     if name in SWIN2_NAMES:
         from .swin2 import make_swin2_backbone
 
-        return make_swin2_backbone(name, hooks=hooks, input_size=input_size)
+        return make_swin2_backbone(name, hooks=hooks, input_size=input_size, remat=remat)
     if name in VIT_NAMES:
         from .vit import make_vit_backbone
 

@@ -5,7 +5,11 @@ per-head logit scale clamped at log 100, the log-spaced continuous
 relative-position bias MLP, and patch merging with reduction then norm.
 ``forward`` takes NHWC images and returns the hooked stage features,
 NHWC, as the JAX module does. Attention runs through kernel K1
-(``kernels/window_attention.py``).
+(``kernels/window_attention.py``). In training mode each block's two
+residual branches pass through per-sample stochastic depth, at rates that
+rise linearly over the blocks from 0 to ``drop_path_rate``; with ``remat``
+each block is recomputed in the backward pass (``torch.utils.checkpoint``)
+instead of keeping its activations.
 
 Submodules are named after the flax scopes (``stage0_block0.attn.qkv``,
 ``downsample0.reduction``, ...) so ``weights.load_jax_variables`` maps
@@ -22,10 +26,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...kernels.window_attention import window_attention
 from ..bias_cache import cached_bias
-from ..layers import conv_nhwc, dense, layer_norm_f32
+from ..layers import conv_nhwc, dense, drop_path_mask, layer_norm_f32
 
 
 @dataclass(frozen=True)
@@ -229,7 +234,11 @@ class WindowAttentionV2(nn.Module):
 
 
 class SwinV2Block(nn.Module):
-    """Post-norm Swin V2 block: x + norm(attn(x)); x + norm(mlp(x))."""
+    """Post-norm Swin V2 block: x + norm(attn(x)); x + norm(mlp(x)).
+
+    ``drop`` is the pair of stochastic-depth factors of the two branches
+    (``layers.drop_path_mask``), drawn by the caller so that a recomputed
+    block sees the ones its first run saw; ``None`` leaves both whole."""
 
     def __init__(
         self,
@@ -262,7 +271,9 @@ class SwinV2Block(nn.Module):
             "attn_mask", None if mask is None else torch.from_numpy(mask), persistent=False
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, drop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    ) -> torch.Tensor:
         (Hr, Wr), (Hp, Wp), ws, shift = self.res, self.padded, self.ws, self.shift
         shortcut = x
         h = x
@@ -276,9 +287,11 @@ class SwinV2Block(nn.Module):
             h = torch.roll(h, shifts=(shift, shift), dims=(1, 2))
         if (Hp, Wp) != (Hr, Wr):
             h = h[:, :Hr, :Wr]
-        x = shortcut + layer_norm_f32(self.norm1, h)
+        h = layer_norm_f32(self.norm1, h)
+        x = shortcut + (h if drop is None else h * drop[0])
         h = F.gelu(dense(self.mlp_fc1, x))
-        return x + layer_norm_f32(self.norm2, dense(self.mlp_fc2, h))
+        h = layer_norm_f32(self.norm2, dense(self.mlp_fc2, h))
+        return x + (h if drop is None else h * drop[1])
 
 
 class PatchMerging(nn.Module):
@@ -308,9 +321,14 @@ class SwinV2Backbone(nn.Module):
         cfg: SwinV2Config,
         hooks: Sequence[int] = (1, 1, 5, 1),
         input_size: Optional[Tuple[int, int]] = None,
+        remat: bool = False,
     ):
         super().__init__()
-        self.cfg, self.hooks = cfg, tuple(hooks)
+        self.cfg, self.hooks, self.remat = cfg, tuple(hooks), remat
+        # block id -> stochastic-depth rate, 0 at the first block
+        self.drop_path_rates = [
+            float(r) for r in np.linspace(0, cfg.drop_path_rate, sum(cfg.depths))
+        ]
         H, W = input_size or (cfg.img_size, cfg.img_size)
         if H % cfg.patch_size or W % cfg.patch_size:
             raise ValueError(f"input {H}x{W} not divisible by patch size {cfg.patch_size}")
@@ -333,14 +351,26 @@ class SwinV2Backbone(nn.Module):
             if i < len(cfg.depths) - 1:
                 setattr(self, f"downsample{i}", PatchMerging(dim))
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, ...]:
         if tuple(x.shape[1:3]) != self.input_size:
             raise ValueError(f"backbone built for {self.input_size}, got {tuple(x.shape[1:3])}")
         x = layer_norm_f32(self.patch_norm, conv_nhwc(self.patch_embed, x))
         feats = []
+        rates = iter(self.drop_path_rates)
         for i, depth in enumerate(self.cfg.depths):
             for j in range(depth):
-                x = getattr(self, f"stage{i}_block{j}")(x)
+                block, rate, drop = getattr(self, f"stage{i}_block{j}"), next(rates), None
+                if self.training and rate > 0.0:
+                    drop = tuple(
+                        drop_path_mask(x.shape[0], rate, x.device, x.dtype, generator)
+                        for _ in range(2)
+                    )
+                if self.remat and torch.is_grad_enabled():
+                    x = checkpoint(block, x, drop, use_reentrant=False)
+                else:
+                    x = block(x, drop)
                 if j == self.hooks[i]:
                     feats.append(x)
             if i < len(self.cfg.depths) - 1:
@@ -352,9 +382,12 @@ def make_swin2_backbone(
     backbone: str,
     hooks: Optional[Sequence[int]] = None,
     input_size: Optional[Tuple[int, int]] = None,
+    remat: bool = False,
 ):
     """Returns (module factory, stage channel widths)."""
     cfg = SWIN2_CONFIGS[backbone]
     hooks = tuple(hooks) if hooks is not None else SWIN2_HOOKS[backbone]
-    factory = functools.partial(SwinV2Backbone, cfg=cfg, hooks=hooks, input_size=input_size)
+    factory = functools.partial(
+        SwinV2Backbone, cfg=cfg, hooks=hooks, input_size=input_size, remat=remat
+    )
     return factory, cfg.stage_dims

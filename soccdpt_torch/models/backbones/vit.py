@@ -257,7 +257,12 @@ class ViTBackbone(nn.Module):
         self.up2x = nn.ConvTranspose2d(ch[1], ch[1], 2, stride=2)
         self.down2x = nn.Conv2d(ch[3], ch[3], 3, stride=2, padding=1)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, ...]:
+        """``generator`` is the interface every backbone shares and is not
+        used: these blocks have neither dropout nor stochastic depth, as in
+        the JAX package."""
         cfg = self.cfg
         B, H, W, _ = x.shape
         p, C = cfg.patch_size, cfg.embed_dim

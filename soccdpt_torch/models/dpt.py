@@ -11,11 +11,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import resize_hw, upsample2x_hw
-from .layers import batch_norm_eval_nhwc, conv_nhwc
+from .layers import batch_norm_nhwc, conv_nhwc
 
 
 class ResidualConvUnit(nn.Module):
-    """relu -> conv3x3 -> [bn] -> relu -> conv3x3 -> [bn], + skip."""
+    """relu -> conv3x3 -> [bn] -> relu -> conv3x3 -> [bn], + skip. In
+    training mode the BatchNorms take the batch's statistics."""
 
     def __init__(self, features: int, use_bn: bool = False):
         super().__init__()
@@ -29,10 +30,10 @@ class ResidualConvUnit(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = conv_nhwc(self.conv1, F.relu(x))
         if self.use_bn:
-            out = batch_norm_eval_nhwc(self.bn1, out)
+            out = batch_norm_nhwc(self.bn1, out)
         out = conv_nhwc(self.conv2, F.relu(out))
         if self.use_bn:
-            out = batch_norm_eval_nhwc(self.bn2, out)
+            out = batch_norm_nhwc(self.bn2, out)
         return out + x
 
 
@@ -80,7 +81,8 @@ class DPT(nn.Module):
     ``backbone`` and ``head`` are module factories. The backbone returns
     3 or 4 NHWC stage features of widths ``in_channels``. With
     ``return_features`` the pre-head feature map is returned beside the
-    head output (SOccDPT V3).
+    head output (SOccDPT V3). ``generator`` feeds the backbone's
+    stochastic depth in training mode.
     """
 
     def __init__(
@@ -108,8 +110,8 @@ class DPT(nn.Module):
         self.refinenet1 = FeatureFusionBlock(features, use_bn)
         self.head = head()
 
-    def forward(self, x: torch.Tensor):
-        layers = self.backbone(x)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        layers = self.backbone(x, generator=generator)
         if len(layers) != self.n:
             raise ValueError(f"backbone gave {len(layers)} features, expected {self.n}")
         rn = [conv_nhwc(getattr(self, f"layer{i + 1}_rn"), f) for i, f in enumerate(layers)]

@@ -5,12 +5,14 @@ NHWC in and out. The depth head runs the plain order upsample-then-conv
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import upsample2x_hw
-from .layers import batch_norm_eval_nhwc, conv3d, conv_nhwc
+from .layers import batch_norm_nhwc, conv3d, conv_nhwc, dropout
 
 
 def scaled_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -44,19 +46,30 @@ class DepthHead(nn.Module):
 
 
 class SegHead(nn.Module):
-    """conv3x3 (no bias) -> BN (running stats) -> relu -> dropout (a no-op
-    at inference) -> conv1x1 -> 2x bilinear (align_corners) -> sigmoid or
-    scaled tanh: (B, H, W, F) -> (B, 2H, 2W, C)."""
+    """conv3x3 (no bias) -> BN -> relu -> dropout -> conv1x1 -> 2x bilinear
+    (align_corners) -> sigmoid or scaled tanh: (B, H, W, F) ->
+    (B, 2H, 2W, C). In training mode BN takes the batch's statistics and
+    the dropout mask is drawn from ``generator``."""
 
-    def __init__(self, num_classes: int = 3, features: int = 256, sigmoid: bool = True):
+    def __init__(
+        self,
+        num_classes: int = 3,
+        features: int = 256,
+        sigmoid: bool = True,
+        dropout_rate: float = 0.1,
+    ):
         super().__init__()
         self.sigmoid = sigmoid
+        self.dropout_rate = dropout_rate
         self.conv1 = nn.Conv2d(features, features, 3, padding=1, bias=False)
         self.bn = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
         self.conv2 = nn.Conv2d(features, num_classes, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(batch_norm_eval_nhwc(self.bn, conv_nhwc(self.conv1, x)))
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        x = F.relu(batch_norm_nhwc(self.bn, conv_nhwc(self.conv1, x)))
+        x = dropout(x, self.dropout_rate, self.training, generator)
         x = upsample2x_hw(conv_nhwc(self.conv2, x), "bilinear", align_corners=True)
         return torch.sigmoid(x) if self.sigmoid else scaled_tanh(x)
 

@@ -5,11 +5,16 @@ in the dtype of the activation it is given, casting its weights to it,
 as flax's ``dtype=`` does. Without gradients the cast is made once and
 kept (:func:`cast_param`), so bf16 serving does not re-cast every weight
 on every request. LayerNorm and BatchNorm compute in f32 and
-cast back, as the JAX modules' ``dtype=jnp.float32`` norms do.
+cast back, as the JAX modules' ``dtype=jnp.float32`` norms do. In a
+module that is in training mode BatchNorm normalises by the batch's
+statistics and moves the running ones, and :func:`dropout` and
+:func:`drop_path_mask` draw from an explicit ``torch.Generator``.
 Activations are NHWC at module boundaries, as in the JAX package;
 convolutions view them as NCHW (a channels-last view, no copy).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -68,7 +73,42 @@ def layer_norm_f32(mod: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def batch_norm_eval_nhwc(mod: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """Inference BatchNorm with running statistics, in f32, on NHWC."""
-    y = (x.float() - mod.running_mean) * torch.rsqrt(mod.running_var + mod.eps)
+def batch_norm_nhwc(mod: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm in f32 on NHWC. In eval mode it reads the running
+    statistics. In training mode it normalises by the batch's mean and
+    biased variance and moves the running statistics towards them by
+    ``mod.momentum`` (0.1, flax's ``momentum=0.9``). The running variance
+    takes the biased batch variance, as flax's ``batch_stats`` does, where
+    ``nn.BatchNorm2d`` itself would store the unbiased one."""
+    xf = x.float()
+    if mod.training:
+        mean = xf.mean(dim=(0, 1, 2))
+        var = xf.var(dim=(0, 1, 2), unbiased=False)
+        with torch.no_grad():
+            mod.running_mean.lerp_(mean, mod.momentum)
+            mod.running_var.lerp_(var, mod.momentum)
+    else:
+        mean, var = mod.running_mean, mod.running_var
+    y = (xf - mean) * torch.rsqrt(var + mod.eps)
     return (y * mod.weight + mod.bias).to(x.dtype)
+
+
+def dropout(
+    x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from ``generator``."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    return x * mask.to(x.dtype) / keep
+
+
+def drop_path_mask(
+    batch: int, rate: float, device, dtype, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """(batch, 1, 1, 1) per-sample stochastic-depth factor: 0 with
+    probability ``rate``, else ``1 / (1 - rate)``."""
+    keep = 1.0 - rate
+    mask = torch.rand((batch, 1, 1, 1), device=device, generator=generator) < keep
+    return mask.to(dtype) / keep

@@ -8,7 +8,10 @@
 * ``points``         (B, H, W, 3)   camera-frame point cloud
 * ``occupancy_grid`` (B, gx, gy, gz, C) when ``compute_occ``
 
-``return_raw=True`` gives the net-resolution (inv_depth, seg) pair. The
+``return_raw=True`` gives the net-resolution (inv_depth, seg) pair, which
+is what training differentiates. In training mode (``model.train()``)
+BatchNorm takes batch statistics and the seg head's dropout and the
+Swin-V2 blocks' stochastic depth draw from the ``generator`` argument. The
 network runs in ``cfg.compute_dtype``; the geometry tail runs in f32 in
 either case, since kernel K2 accumulates f32 and bf16 coordinates would
 move points by whole voxels.
@@ -46,11 +49,11 @@ class SOccDPT_V3(nn.Module):
     """Depth DPT with ``return_features``; the seg head rides the depth
     decoder's fused features (the published flagship)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, remat: bool = False):
         super().__init__()
         self.cfg = cfg
         net_w, net_h = cfg.net_size
-        bb, chans = make_backbone(cfg.backbone, input_size=(net_h, net_w))
+        bb, chans = make_backbone(cfg.backbone, input_size=(net_h, net_w), remat=remat)
         hf1, hf2 = _head_features(cfg)
         self.depth_net = DPT(
             backbone=bb,
@@ -69,11 +72,12 @@ class SOccDPT_V3(nn.Module):
         compute_occ: Optional[bool] = None,
         return_raw: bool = False,
         output_size: Optional[Tuple[int, int]] = None,
+        generator: Optional[torch.Generator] = None,
     ):
         cfg = self.cfg
         x = x.permute(0, 2, 3, 1).to(compute_dtype(cfg))
-        inv_depth, feats = self.depth_net(x)
-        seg = self.seg_head(feats)
+        inv_depth, feats = self.depth_net(x, generator=generator)
+        seg = self.seg_head(feats, generator)
         inv_depth = inv_depth[..., 0]  # (B, h, w)
         seg = seg.permute(0, 3, 1, 2)  # (B, C, h, w)
         if return_raw:
@@ -92,11 +96,13 @@ def build_model(
     cfg: ModelConfig,
     device: Union[str, torch.device, None] = None,
     seed: int = 0,
+    remat: bool = False,
 ) -> nn.Module:
     """The model of ``cfg`` in eval mode on ``device`` (the card unless
     ``device`` says otherwise), with weights drawn from numpy seed ``seed``
     (``weights.init_random_``); load real weights with
-    ``weights.load_jax_variables``."""
+    ``weights.load_jax_variables``. ``remat`` recomputes the Swin-V2 blocks
+    in the backward pass. A trainer calls ``.train()`` itself."""
     from ..weights import init_random_
 
     dev = resolve_device(device)
@@ -104,6 +110,6 @@ def build_model(
         raise NotImplementedError(
             f"SOccDPT V{cfg.version} is not ported to soccdpt_torch yet (see ROADMAP.md)"
         )
-    model = SOccDPT_V3(cfg)
+    model = SOccDPT_V3(cfg, remat=remat)
     init_random_(model, seed)
     return model.to(dev).eval()

@@ -57,6 +57,21 @@ def resize_nchw(
     return out.reshape(*lead, *out.shape[-2:])
 
 
+def subsampled_resize_nchw(
+    x: torch.Tensor,
+    size: Tuple[int, int],
+    step: int,
+    method: str = "bilinear",
+    align_corners: bool = False,
+) -> torch.Tensor:
+    """``resize_nchw(x, size, ...)[..., ::step, ::step]``: a level of the
+    SSI loss's pyramid, taken from the net-resolution prediction. (The JAX
+    package folds the subsampling into its resize matrices, a rewrite for
+    the TPU of this same function.)"""
+    out = resize_nchw(x, size, method, align_corners)
+    return out if step == 1 else out[..., ::step, ::step]
+
+
 def upsample2x_hw(
     x: torch.Tensor, method: str = "bilinear", align_corners: bool = True
 ) -> torch.Tensor:

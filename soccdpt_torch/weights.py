@@ -1,4 +1,4 @@
-"""Weights: random initialisation and loading of the JAX package's trees.
+"""Weights: random initialisation, and the JAX package's trees in and out.
 
 The port names its submodules after the flax scopes
 (``depth_net.backbone.stage0_block0.attn.qkv``, ``seg_head.bn``, ...), so
@@ -18,11 +18,15 @@ state by name, with these layout changes:
   ``running_var``;
 * plain parameters (``q_bias``, ``v_bias``, ``logit_scale``, ``cls_token``,
   ``pos_embed``, ``rel_pos_table``, ``gamma_1``, ``gamma_2``) as they are.
+
+``to_jax_variables`` is the way back, for parameters, their gradients and
+the running statistics; ``named_flax_params`` lists the parameters under
+their flax paths in the JAX package's leaf order.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +69,66 @@ def _targets(model: nn.Module):
             yield mod.running_var, "batch_stats", pre + "var", None
 
 
+def _to_torch_layout(arr: np.ndarray, layout) -> np.ndarray:
+    if layout == "dense":
+        return arr.T
+    if layout == "conv":
+        return arr.transpose(3, 2, 0, 1)
+    if layout == "conv3d":
+        return arr.transpose(4, 3, 0, 1, 2)
+    if layout == "conv_transpose":
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1)
+    return arr
+
+
+def _to_flax_layout(arr: np.ndarray, layout) -> np.ndarray:
+    """The inverse of :func:`_to_torch_layout`."""
+    if layout == "dense":
+        return arr.T
+    if layout == "conv":
+        return arr.transpose(2, 3, 1, 0)
+    if layout == "conv3d":
+        return arr.transpose(2, 3, 4, 1, 0)
+    if layout == "conv_transpose":
+        return arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+    return arr
+
+
+def named_flax_params(model: nn.Module) -> List[Tuple[str, nn.Parameter]]:
+    """``(flax path, parameter)`` for every parameter of ``model``, in the
+    order in which the JAX package enumerates the leaves of its ``params``
+    tree: nested dictionaries flattened with the keys of each level
+    sorted. That is not ``model.named_parameters()`` order, and the
+    patch-wise training masks are cut from it."""
+    found = [(path, t) for t, coll, path, _ in _targets(model) if coll == "params"]
+    return sorted(found, key=lambda item: tuple(item[0].split(".")))
+
+
+def to_jax_variables(model: nn.Module, grads: bool = False) -> Dict[str, Dict]:
+    """``{"params": ..., "batch_stats": ...}`` of numpy leaves under the
+    flax paths and in the flax layouts: what ``load_jax_variables`` reads,
+    written back. With ``grads`` the ``params`` leaves are the parameters'
+    ``.grad`` (zeros where a parameter has none) and there is no
+    ``batch_stats``. Raises if two tensors map to one path."""
+    out: Dict[str, Dict] = {"params": {}} if grads else {"params": {}, "batch_stats": {}}
+    seen = set()
+    for t, coll, path, layout in _targets(model):
+        if (coll, path) in seen:
+            raise KeyError(f"two tensors of the model map to {coll}:{path}")
+        seen.add((coll, path))
+        if grads:
+            if coll != "params":
+                continue
+            t = t.grad if t.grad is not None else torch.zeros_like(t)
+        arr = _to_flax_layout(t.detach().float().cpu().numpy(), layout)
+        node = out[coll]
+        *scopes, leaf = path.split(".")
+        for scope in scopes:
+            node = node.setdefault(scope, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return out
+
+
 def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
     """Copy a JAX variables tree (numpy leaves) into ``model`` in place.
 
@@ -82,15 +146,7 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mod
             if path not in trees[coll]:
                 missing.append(f"{coll}:{path}")
                 continue
-            arr = trees[coll][path]
-            if layout == "dense":
-                arr = arr.T
-            elif layout == "conv":
-                arr = arr.transpose(3, 2, 0, 1)
-            elif layout == "conv3d":
-                arr = arr.transpose(4, 3, 0, 1, 2)
-            elif layout == "conv_transpose":
-                arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+            arr = _to_torch_layout(trees[coll][path], layout)
             if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(
                     f"{coll}:{path}: JAX shape {arr.shape} does not fit {tuple(t.shape)}"

@@ -17,6 +17,17 @@ Tolerances, with their reasons:
   rounds the un-normalised weight of each key tile to bf16 where the plain
   version rounds the normalised one; either is off by 2^-9 of itself
   (kernels/global_attention.py, "Rounding");
+* K7 f32: atol = rtol = 3e-5, the bound tests/test_global_attention.py
+  holds the Pallas backward to; K7 bf16: atol = rtol = 2e-2, the forward's
+  bound: dq, dk and dv are rounded to bf16 once, and K7 takes delta from
+  the bf16 output where the plain version sums dP * P in f32. No atomics:
+  two runs give the same bits;
+* the finite-difference checks of the two ``autograd.Function``s, f32:
+  a directional derivative by central differences with a step of 1e-2
+  against the inner product of the gradients with the direction, to 2 %
+  of its size: f32 outputs of size 1 carry 1e-7 of rounding, so a
+  difference over 2e-2 is good to 1e-5 of the output and the derivative
+  to a percent;
 * K2: rtol/atol 1e-5, the bound of tests/test_sorted_segment_sum.py (f32
   adds in an order the atomics choose); rtol 1e-4 where every row lands
   in one cell, since thousands of adds into one accumulator drift by a
@@ -26,7 +37,12 @@ import numpy as np
 import pytest
 import torch
 
-from soccdpt_torch.kernels.global_attention import global_attention, global_attention_plain
+from soccdpt_torch.kernels.global_attention import (
+    global_attention,
+    global_attention_backward,
+    global_attention_backward_plain,
+    global_attention_plain,
+)
 from soccdpt_torch.kernels.segment_sum import segment_sum
 from soccdpt_torch.kernels.window_attention import window_attention, window_attention_plain
 
@@ -186,3 +202,128 @@ def test_global_attention_kernel_rejects_what_it_does_not_take(card):
         global_attention(q, k, v, bias[:, :8])
     with pytest.raises(ValueError, match="lies on"):
         global_attention(q, k, v, bias.cpu())
+
+
+# --- K7 and the gradients ------------------------------------------------------
+
+K7_F32_TOL, K7_BF16_TOL = 3e-5, 2e-2
+FD_STEP, FD_RTOL = 1e-2, 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16, None])
+@pytest.mark.parametrize(
+    "B,H,T,d",
+    [
+        (1, 16, 1025, 64),  # beitl16_512
+        (2, 16, 1025, 64),  # at batch 2: dbias sums two images
+        (1, 16, 577, 64),  # vitl16_384
+        (2, 2, 65, 16),  # beittest_64: ragged last tiles
+        (1, 2, 128, 32),  # whole tiles
+        (1, 3, 257, 64),  # one live row in the last tile
+        (3, 2, 70, 128),  # d = 128, three images
+        (1, 1, 1, 16),  # a single token
+    ],
+)
+def test_global_attention_backward_kernel_matches_plain(card, dtype, bias_dtype, B, H, T, d):
+    q, k, v, bias = _global_inputs(B, H, T, d, bias_dtype, dtype, card)
+    g = torch.from_numpy(
+        np.random.default_rng(1).standard_normal((B, H, T, d)).astype(np.float32)
+    ).to(card, dtype)
+    scale = d**-0.5
+    want = global_attention_backward_plain(q, k, v, bias, scale, g)
+    tol = K7_F32_TOL if dtype == torch.float32 else K7_BF16_TOL
+    before = global_attention_backward.launches
+    got = global_attention_backward(q, k, v, bias, scale, g)
+    torch.cuda.synchronize()
+    assert global_attention_backward.launches == before + 1
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if w is None:
+            assert a is None, name
+            continue
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        # a bf16 bias gets a bf16 dbias: two f32 sums an ulp apart can round apart
+        t = K7_BF16_TOL if a.dtype == torch.bfloat16 else tol
+        np.testing.assert_allclose(
+            a.float().cpu().numpy(), w.float().cpu().numpy(), atol=t, rtol=t, err_msg=name
+        )
+    again = global_attention_backward(q, k, v, bias, scale, g)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+def test_global_attention_backward_skips_dbias_when_the_bias_is_frozen(card):
+    q, k, v, bias = _global_inputs(2, 2, 65, 16, torch.float32, torch.float32, card)
+    g = torch.ones_like(q)
+    dq, dk, dv, dbias = global_attention_backward(q, k, v, bias, 0.25, g, want_dbias=False)
+    assert dbias is None
+    want = global_attention_backward_plain(q, k, v, bias, 0.25, g)
+    for a, w in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), atol=3e-5, rtol=3e-5)
+    # through autograd: a frozen bias gets no gradient, the others do
+    q.requires_grad_(), k.requires_grad_(), v.requires_grad_()
+    before = global_attention_backward.launches
+    global_attention(q, k, v, bias, 0.25).backward(g)
+    assert global_attention_backward.launches == before + 1
+    assert bias.grad is None
+    np.testing.assert_allclose(q.grad.cpu().numpy(), want[0].cpu().numpy(), atol=3e-5, rtol=3e-5)
+
+
+def _directional_check(fn, inputs, seed):
+    """d/dt sum(w * fn(x + t u)) at t = 0 by central differences against
+    the inner product of autograd's gradients with u."""
+    rng = np.random.default_rng(seed)  # numpy: the same numbers on every device
+
+    def randn(shape):
+        return torch.from_numpy(rng.standard_normal(tuple(shape)).astype(np.float32)).to(
+            inputs[0].device)
+
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    w = randn(out.shape)
+    (out * w).sum().backward()
+    dirs = [randn(t.shape) for t in inputs]
+    analytic = sum(float((t.grad.double() * u.double()).sum()) for t, u in zip(leaves, dirs))
+    with torch.no_grad():
+        plus = fn(*[t + FD_STEP * u for t, u in zip(inputs, dirs)])
+        minus = fn(*[t - FD_STEP * u for t, u in zip(inputs, dirs)])
+        numeric = float(((plus.double() - minus.double()) * w.double()).sum()) / (2 * FD_STEP)
+    assert abs(analytic) > 1e-3, "degenerate direction"
+    assert abs(numeric - analytic) <= FD_RTOL * abs(analytic), (numeric, analytic)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_global_attention_function_passes_a_finite_difference_check(card, with_bias):
+    """K6 forward and K7 backward as one ``autograd.Function``, in f32."""
+    q, k, v, bias = _global_inputs(
+        2, 2, 65, 16, torch.float32 if with_bias else None, torch.float32, card
+    )
+    inputs = (q, k, v, bias) if with_bias else (q, k, v)
+    before = global_attention_backward.launches
+
+    def fn(q_, k_, v_, b_=None):
+        return global_attention(q_, k_, v_, b_, 0.25)
+
+    _directional_check(fn, inputs, seed=2)
+    assert global_attention_backward.launches == before + 1
+
+
+@pytest.mark.parametrize("nW", [None, 4])
+def test_window_attention_function_passes_a_finite_difference_check(card, nW):
+    """K1 forward with its recompute backward: dq, dk, dv, dtau and dB."""
+    q, k, v, scale, bias, mask = _attn_inputs(8, 2, 16, 16, nW, torch.float32, card)
+    before = window_attention.launches
+
+    def fn(q_, k_, v_, s_, b_):
+        return window_attention(q_, k_, v_, s_, b_, mask)
+
+    _directional_check(fn, (q, k, v, scale, bias), seed=3)
+    assert window_attention.launches == before + 3  # forwards only: the backward launches none
+
+
+def test_segment_sum_kernel_refuses_values_that_need_a_gradient(card):
+    lin = torch.zeros(8, dtype=torch.int32, device=card)
+    vals = torch.ones(8, 3, device=card, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        segment_sum(lin, vals, 4)
+    with torch.no_grad():
+        assert float(segment_sum(lin, vals, 4)[0, 0]) == 8.0

@@ -3,7 +3,9 @@
 Inputs and weights come from numpy seeds; weights go from the JAX
 package's variables tree into the port through
 ``soccdpt_torch.weights.load_jax_variables``, so both stacks compute with
-one weight set. Both run in f32.
+one weight set. Both run in f32, the JAX modules with
+``deterministic=True`` and the port's in ``eval()`` mode (train mode is
+held to flax in tests/test_torch_training.py).
 
 Tolerances: ``ATOL``/``RTOL`` = 1e-4 for whole modules, the bound the
 JAX package's own whole-trunk tests use (two f32 stacks summing in
@@ -109,7 +111,7 @@ def test_swin2_stage_features_match_jax():
     bb, variables, x = _jax_backbone()
     want = bb.apply(variables, jnp.asarray(x))
     factory, chans = make_backbone("swin2test_64")
-    port = load_jax_variables(factory(), variables)
+    port = load_jax_variables(factory(), variables).eval()
     got = port(torch.from_numpy(x))
     assert chans == (16, 32, 64, 128)
     assert [tuple(g.shape) for g in got] == [w.shape for w in want]
@@ -135,7 +137,7 @@ def test_bias_cache_is_never_stale():
     """The folded rel-pos bias is served while the weights are unchanged,
     and recomputed (not served) after a weight load."""
     _, variables, x = _jax_backbone()
-    port = load_jax_variables(make_backbone("swin2test_64")[0](), variables)
+    port = load_jax_variables(make_backbone("swin2test_64")[0](), variables).eval()
     attn = port.stage0_block0.attn
     with torch.no_grad():
         assert cached_bias(attn) is attn.bias_cache
@@ -185,7 +187,7 @@ def test_dpt_decoder_matches_jax():
         head=functools.partial(DepthHead, 64, 64, 32, True),
         features=64, return_features=True,
     )
-    load_jax_variables(port, variables)
+    load_jax_variables(port, variables).eval()
     with torch.no_grad():
         got_out, got_feat = port(torch.from_numpy(x))
     assert tuple(got_out.shape) == want_out.shape == (1, 64, 64, 1)
@@ -212,7 +214,7 @@ def test_seg_head_matches_jax(sigmoid):
     x = np.random.default_rng(4).standard_normal((2, 12, 10, 64)).astype(np.float32)
     variables = perturbed_variables(jhead.init(jax.random.PRNGKey(4), jnp.asarray(x)), 4)
     want = np.asarray(jhead.apply(variables, jnp.asarray(x)))
-    port = load_jax_variables(SegHead(3, 64, sigmoid), variables)
+    port = load_jax_variables(SegHead(3, 64, sigmoid), variables).eval()
     with torch.no_grad():
         got = to_np(port(torch.from_numpy(x)))
     assert got.shape == want.shape == (2, 24, 20, 3)
