@@ -82,7 +82,8 @@ class DPT(nn.Module):
     3 or 4 NHWC stage features of widths ``in_channels``. With
     ``return_features`` the pre-head feature map is returned beside the
     head output (SOccDPT V3). ``generator`` feeds the backbone's
-    stochastic depth in training mode.
+    stochastic depth and the head's dropout (SOccDPT V1's seg head) in
+    training mode.
     """
 
     def __init__(
@@ -122,7 +123,7 @@ class DPT(nn.Module):
             path = self.refinenet3(rn[2], size=tuple(rn[1].shape[1:3]))
         path = self.refinenet2(path, rn[1], size=tuple(rn[0].shape[1:3]))
         path = self.refinenet1(path, rn[0])
-        out = self.head(path)
+        out = self.head(path, generator)
         if self.return_features:
             return out, path
         return out

@@ -37,7 +37,10 @@ class DepthHead(nn.Module):
         self.conv2 = nn.Conv2d(head_features_1 // 2, head_features_2, 3, padding=1)
         self.conv3 = nn.Conv2d(head_features_2, 1, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        """``generator`` is unused: every head takes the seg head's call."""
         x = conv_nhwc(self.conv1, x)
         x = upsample2x_hw(x, "bilinear", align_corners=True)
         x = F.relu(conv_nhwc(self.conv2, x))
@@ -77,7 +80,9 @@ class SegHead(nn.Module):
 class IdentityHead(nn.Module):
     """Pass-through head (SOccDPT V2's shared trunk)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         return x
 
 

@@ -31,7 +31,13 @@ Tolerances, with their reasons:
 * K2: rtol/atol 1e-5, the bound of tests/test_sorted_segment_sum.py (f32
   adds in an order the atomics choose); rtol 1e-4 where every row lands
   in one cell, since thousands of adds into one accumulator drift by a
-  few ulps of the total.
+  few ulps of the total;
+* K3, K4, K5 f32: atol 2e-4, 3e-4 and atol = rtol = 2e-5, the bounds
+  tests/test_fused_{rcu,fusion,head}.py hold the Pallas kernels to, with
+  TF32 off for the plain version's cuDNN convolutions; bf16: atol = rtol =
+  2e-2: the kernel rounds each intermediate once where the plain version
+  may round twice (a conv's output, then the residual sum), one bf16 step
+  (2^-8 of the value) on values of size 1 to 10.
 """
 import numpy as np
 import pytest
@@ -43,6 +49,9 @@ from soccdpt_torch.kernels.global_attention import (
     global_attention_backward_plain,
     global_attention_plain,
 )
+from soccdpt_torch.kernels.fused_fusion import fused_rcu_tail, fused_rcu_tail_plain
+from soccdpt_torch.kernels.fused_head import fused_head_tail, fused_head_tail_plain
+from soccdpt_torch.kernels.fused_rcu import fused_rcu, fused_rcu_plain
 from soccdpt_torch.kernels.segment_sum import segment_sum
 from soccdpt_torch.kernels.window_attention import window_attention, window_attention_plain
 
@@ -327,3 +336,162 @@ def test_segment_sum_kernel_refuses_values_that_need_a_gradient(card):
         segment_sum(lin, vals, 4)
     with torch.no_grad():
         assert float(segment_sum(lin, vals, 4)[0, 0]) == 8.0
+
+
+# --- K3, K4, K5: the decoder convolutions ------------------------------------------
+
+DECODER_F32_TOL = {"rcu": 2e-4, "tail": 3e-4, "head": 2e-5}
+DECODER_BF16_TOL = 2e-2
+
+
+@pytest.fixture
+def no_tf32(card):
+    """f32 plain versions in full f32: cuDNN takes TF32 by default."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield card
+    torch.backends.cudnn.allow_tf32 = before
+
+
+def _decoder_inputs(B, H, W, C, dev, seed=0, scale=0.05):
+    """The inputs of tests/test_fused_rcu.py and tests/test_fused_fusion.py:
+    s, w1, b1, w2, b2, out_w, out_b (HWIO weights)."""
+    rng = np.random.default_rng(seed)
+    arrays = [
+        rng.standard_normal((B, H, W, C)),
+        rng.standard_normal((3, 3, C, C)) * scale, rng.standard_normal(C) * 0.1,
+        rng.standard_normal((3, 3, C, C)) * scale, rng.standard_normal(C) * 0.1,
+        rng.standard_normal((C, C)) * scale, rng.standard_normal(C) * 0.1,
+    ]
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
+
+
+def _head_inputs(B, H, W, Ci, Cm, dev, seed=0):
+    """The inputs of tests/test_fused_head.py: x, w2, b2, w3, b3."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((B, H, W, Ci)), rng.standard_normal((3, 3, Ci, Cm)) * 0.1,
+              rng.standard_normal((Cm,)) * 0.1, rng.standard_normal((Cm,)) * 0.1,
+              rng.standard_normal(())]
+    return [torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in arrays]
+
+
+def _close(got, want, f32_tol, rtol=0.0):
+    if got.dtype == torch.bfloat16:
+        f32_tol = rtol = DECODER_BF16_TOL
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=f32_tol, rtol=rtol)
+
+
+DECODER_CASES = [
+    (1, 16, 16, 32, 0.05),  # the mirrored JAX cases
+    (2, 24, 16, 16, 0.05),
+    (1, 7, 9, 16, 0.05),  # ragged tiles
+    (2, 5, 13, 64, 0.05),
+    (1, 64, 64, 256, 0.02),  # the flagship's refinenet1 width
+]
+
+
+@pytest.mark.parametrize("tile", [None, 8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,scale", DECODER_CASES)
+def test_fused_rcu_kernel_matches_plain(no_tf32, dtype, B, H, W, C, scale, tile):
+    x, w1, b1, w2, b2, _, _ = _decoder_inputs(B, H, W, C, no_tf32, scale=scale)
+    x = x.to(dtype)
+    before = fused_rcu.launches
+    got = fused_rcu(x, w1, b1, w2, b2, tile=tile)
+    torch.cuda.synchronize()
+    assert fused_rcu.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _close(got, fused_rcu_plain(x, w1, b1, w2, b2), DECODER_F32_TOL["rcu"])
+
+
+@pytest.mark.parametrize("tile", [None, 8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,scale", DECODER_CASES)
+def test_fused_rcu_tail_kernel_matches_plain(no_tf32, dtype, B, H, W, C, scale, tile):
+    s, w1, b1, w2, b2, wo, bo = _decoder_inputs(B, H, W, C, no_tf32, seed=1, scale=scale)
+    s = s.to(dtype)
+    if dtype == torch.float32 and C == 256 and tile == 8:
+        # tile 8 needs more than a block's shared memory at C = 256 in f32
+        with pytest.raises(ValueError, match="shared memory"):
+            fused_rcu_tail(s, w1, b1, w2, b2, wo, bo, tile=tile)
+        return
+    before = fused_rcu_tail.launches
+    got = fused_rcu_tail(s, w1, b1, w2, b2, wo.reshape(1, 1, C, C), bo, tile=tile)
+    torch.cuda.synchronize()
+    assert fused_rcu_tail.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, 2 * H, 2 * W, C)
+    _close(got, fused_rcu_tail_plain(s, w1, b1, w2, b2, wo, bo), DECODER_F32_TOL["tail"])
+
+
+@pytest.mark.parametrize("kernel", ["rcu", "tail"])
+def test_decoder_kernels_keep_the_border_at_zero_padding(no_tf32, kernel):
+    """The all-ones case of tests/test_fused_rcu.py: the intermediate's
+    halo outside the image must be zero, not relu(b1 + conv of padding)."""
+    C = 8
+    x = torch.ones(1, 8, 8, C, device=no_tf32)
+    w = torch.full((3, 3, C, C), 0.01, device=no_tf32)
+    b = torch.zeros(C, device=no_tf32)
+    for tile in (8, 4):
+        if kernel == "rcu":
+            got, want = fused_rcu(x, w, b, w, b, tile=tile), fused_rcu_plain(x, w, b, w, b)
+        else:
+            wo = 0.5 * torch.eye(C, device=no_tf32)
+            got = fused_rcu_tail(x, w, b, w, b, wo, b, tile=tile)
+            want = fused_rcu_tail_plain(x, w, b, w, b, wo, b)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,W,Ci,Cm",
+    [
+        (1, 16, 16, 8, 8),  # the mirrored JAX cases
+        (2, 16, 32, 16, 8),
+        (1, 8, 8, 8, 16),
+        (1, 7, 9, 16, 8),  # ragged tiles
+        (2, 5, 13, 64, 36),  # two chunks of output channels
+        (1, 1, 3, 8, 4),  # one row
+        (1, 128, 128, 128, 32),  # the flagship's head
+    ],
+)
+def test_fused_head_tail_kernel_matches_plain(no_tf32, dtype, B, H, W, Ci, Cm):
+    x, w2, b2, w3, b3 = _head_inputs(B, H, W, Ci, Cm, no_tf32)
+    x = x.to(dtype)
+    before = fused_head_tail.launches
+    got = fused_head_tail(x, w2, b2, w3, b3)
+    torch.cuda.synchronize()
+    assert fused_head_tail.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, 2 * H, 2 * W)
+    _close(got, fused_head_tail_plain(x, w2, b2, w3, b3), DECODER_F32_TOL["head"],
+           rtol=DECODER_F32_TOL["head"])
+
+
+def test_fused_head_tail_gradient_is_the_plain_versions(no_tf32):
+    """The kernel forward, the recompute backward: every input's gradient
+    as autograd through the plain version gives it."""
+    inputs = _head_inputs(2, 8, 12, 16, 8, no_tf32, seed=4)
+    inputs[3] = inputs[3].reshape(1, 1, 8, 1)  # the (1, 1, Cm, 1) form of w3
+    g = torch.randn(2, 16, 24, device=no_tf32, generator=torch.Generator(no_tf32).manual_seed(0))
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    before = fused_head_tail.launches
+    fused_head_tail(*leaves).backward(g)
+    assert fused_head_tail.launches == before + 1
+    plain = [t.clone().requires_grad_() for t in inputs]
+    fused_head_tail_plain(*plain).backward(g)
+    for name, a, b in zip(("x", "w2", "b2", "w3", "b3"), leaves, plain):
+        assert a.grad.shape == a.shape, name
+        np.testing.assert_allclose(a.grad.cpu().numpy(), b.grad.cpu().numpy(), atol=2e-5,
+                                   rtol=2e-5, err_msg=name)
+
+
+def test_forward_only_decoder_kernels_refuse_a_gradient(card):
+    s, w1, b1, w2, b2, wo, bo = _decoder_inputs(1, 8, 8, 16, card)
+    w1.requires_grad_()
+    with pytest.raises(NotImplementedError, match="forward only"):
+        fused_rcu(s, w1, b1, w2, b2)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        fused_rcu_tail(s, w1, b1, w2, b2, wo, bo)
+    with torch.no_grad():
+        assert fused_rcu(s, w1, b1, w2, b2).shape == s.shape

@@ -271,12 +271,38 @@ def _jax_mask_dict(tree):
     return {".".join(str(k.key) for k in path): bool(flag) for path, flag in leaves}
 
 
-@pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_masks_are_the_jax_partition(family):
+def _version_stacks(family, version):
+    """(the JAX params tree's shapes, a port trainer) of SOccDPT V1 or V2:
+    a partition needs the tree's paths only, so JAX traces the init and
+    computes nothing."""
+    cfg = dict(model_type=FAMILIES[family], version=version, features=32)
+    jmodel = jax_build_model(JaxModelConfig(**cfg))
+    variables = jax.eval_shape(lambda x: jmodel.init(jax.random.PRNGKey(0), x, return_raw=True),
+                               jax.ShapeDtypeStruct((1, 3, 64, 64), jnp.float32))
+    trainer = Trainer(ModelConfig(**cfg), TrainConfig(batch_size=2, encoder_percentage=1.0),
+                      device="cpu")
+    trainer.init_state(0)
+    return variables, trainer
+
+
+@pytest.mark.parametrize("family,version", [("beit", 3), ("swin2", 3), ("swin2", 1), ("swin2", 2)],
+                         ids=["beit", "swin2", "swin2-v1", "swin2-v2"])
+def test_masks_are_the_jax_partition(family, version):
     """``encoder_percentage`` 0.5 and ``patchwise_percentage`` 0.34: the
-    same leaves frozen, the same three patches, in the same leaf order."""
-    _, variables, trainer, _ = _stacks(family)
+    same leaves frozen, the same three patches, in the same leaf order.
+    V1 has two encoders (``depth_net.backbone``, ``seg_net.backbone``);
+    V2's whole trunk, decoder included, lies under ``pretrained`` and so
+    counts as encoder, as it does in the JAX package."""
+    if version == 3:
+        _, variables, trainer, _ = _stacks(family)
+    else:
+        variables, trainer = _version_stacks(family, version)
     params = variables["params"]
+    if version == 2:
+        frozen = {p for p, flag in encoder_mask(trainer.model, 0.0).items() if not flag}
+        assert "pretrained.refinenet1.out_conv.kernel" in frozen
+        assert frozen == {p for p, _ in named_flax_params(trainer.model)
+                          if p.startswith("pretrained.")}
     jtrainable = jpw.encoder_mask(params, 0.5)
     want = _jax_mask_dict(jtrainable)
     got = encoder_mask(trainer.model, 0.5)
