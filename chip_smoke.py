@@ -17,12 +17,15 @@ Phases, each of which fails the run on any error:
    tail) and K5 (depth-head tail), standalone ops on no path of the
    system, as in the JAX package: against their plain versions at the
    flagship's and BEiT-large's decoder shapes (batch 1 and 2) and at
-   ragged ones, in f32 and bf16; then on the live flagship decoder, whose
-   modules' inputs and outputs forward hooks capture during one served
-   request, each kernel held to the module it replaces on that module's
-   weights (the launch counts set to 0 just before and read just after);
-   K5's gradient; times beside the plain version, the served modules' own
-   cuDNN chain and the bound;
+   ragged ones, in f32 and bf16 (K3 and K4 run bf16 on the tensor cores,
+   and ``cuobjdump -sass`` of their libraries must show ``HGMMA``); then on
+   the live flagship decoder, whose modules' inputs and outputs forward
+   hooks capture during one served request, each kernel held to the module
+   it replaces on that module's weights (the launch counts set to 0 just
+   before and read just after); the CUDA launches of one call of each op,
+   from a profile; K5's gradient; times beside the plain version, the
+   served modules' own cuDNN chain and the bound; K3's launch plan against
+   its neighbouring plans at both decoders' map sizes;
 4. four served configurations at full width and depth, weights from a
    numpy seed, 1080x1920 uint8 requests at batch 1 and 2, with and
    without the occupancy grid, through ``make_serving_fn``: SOccDPT V3 on
@@ -780,7 +783,80 @@ def beit_calls(torch, cases):
     return calls
 
 
-def phase_decoder(torch, F):
+# the planner's choice for K3's convolutions against its neighbours: (B, map
+# size) at C = 256, and (tile config, splits) to try beside the planned one
+PLAN_CHECK_SHAPES = [(1, 8), (1, 16), (1, 32), (1, 64), (1, 128), (2, 64)]
+PLAN_CHECK_VARIANTS = [(0, 1), (1, 1), (1, 2), (2, 1), (2, 2), (2, 4), (2, 9), (2, 36)]
+
+
+def plan_check(torch, weights):
+    """One bf16 RCU at each of PLAN_CHECK_SHAPES through the wrapper's own
+    bf16 route, planned and with each neighbouring plan, on the live
+    decoder's weights (OIHW f32 seen as HWIO, f32 biases), by CUDA-graph
+    replay; plans of more than 1,100 CTAs are left out."""
+    from soccdpt_torch.kernels import _conv
+    from soccdpt_torch.kernels import fused_rcu as fr
+
+    out = []
+    with torch.no_grad():
+        for B, n in PLAN_CHECK_SHAPES:
+            x = decoder_inputs(torch, (B, n, n, 256), 300 + n)[0].bfloat16()
+            planned = _conv.plan_conv(B, n, n, 256, taps=9)
+            row = {"shape": [B, n, n, 256], "plain_ms": cuda_ms(torch, lambda: fr.fused_rcu_plain(
+                x, *weights)), "plans": []}
+            for config, splits in [(planned.config, planned.splits)] + PLAN_CHECK_VARIANTS:
+                plan = dataclasses.replace(planned, splits=splits, config=config)
+                box_h, box_w, bn = plan.box
+                plan = dataclasses.replace(plan, boxes_y=-(-n // box_h), boxes_x=-(-n // box_w),
+                                           n_tiles=-(-256 // bn))
+                if (plan.ksteps % splits or plan.ctas > 1100
+                        or (row["plans"] and (config, splits) == (planned.config, planned.splits))):
+                    continue
+                row["plans"].append({"config": config, "box": list(plan.box), "splits": splits,
+                                     "ctas": plan.ctas, "planned": not row["plans"],
+                                     "ms": cuda_ms(torch, lambda: fr._launch_bf16(x, *weights,
+                                                                                  plan))})
+            out.append(row)
+            log(f"planner check, one bf16 RCU {row['shape']}: plain {row['plain_ms']:.4f} ms; "
+                + ", ".join(f"{'planned ' if p['planned'] else ''}{p['box']} s{p['splits']} "
+                            f"({p['ctas']} CTAs) {p['ms']:.4f}" for p in row["plans"]))
+    return out
+
+
+def tensor_core_proof(_build):
+    """``HGMMA`` (wgmma in SASS) and ``UTMALDG`` (TMA loads) counted in the
+    built K3 and K4 libraries: their bf16 route must run on the tensor
+    cores, fed by TMA."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for name in ("fused_rcu", "fused_fusion"):
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True,
+                              text=True, check=True).stdout
+        counts[name] = {"HGMMA": sass.count("HGMMA"), "UTMALDG": sass.count("UTMALDG")}
+        if counts[name]["HGMMA"] == 0 or counts[name]["UTMALDG"] == 0:
+            fail(f"the SASS of {name}'s library shows no HGMMA or no UTMALDG: {counts[name]}")
+    log(f"tensor cores in the decoder libraries (cuobjdump -sass): {counts}")
+    return counts
+
+
+def cuda_launches(torch, fn):
+    """(device operations (kernels, memsets, copies), device µs by operation)
+    of one call of ``fn``, from a profile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    return sum(ev.count for ev in rows), {ev.key[:80]: ev.device_time_total for ev in rows}
+
+
+def phase_decoder(torch, F, sass):
     kernels = decoder_kernels()
     checks = {name: [] for name in kernels}
     worst = {name: {"float32": 0.0, "bfloat16": 0.0} for name in kernels}
@@ -815,7 +891,7 @@ def phase_decoder(torch, F):
 
     # --- (b) the live flagship decoder: each kernel against the served
     # modules' own outputs, on their own weights, counts from 0 --------------
-    live, grad, timed, beit = {}, None, None, None
+    live, grad, timed, beit, per_call, by_op, planner = {}, None, None, None, {}, {}, None
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         model, rcus, tail, head_io = live_decoder(torch, dtype)
@@ -829,6 +905,14 @@ def phase_decoder(torch, F):
         for (name, what, args, want, _), got in zip(cases, outs):
             record(name, got, want, args[0].shape, f"live {what}, against the served module",
                    dname)
+        with torch.no_grad():
+            per_call[dname], by_op[dname] = {}, {}
+            for name, _, args, _, _ in cases:
+                if name not in per_call[dname]:
+                    per_call[dname][name], by_op[dname][name] = cuda_launches(
+                        torch, lambda: kernels[name][0](*args))
+        log(f"CUDA launches of one call, live decoder, {dname}: {per_call[dname]}; device µs by "
+            f"operation (the first call of each): {by_op[dname]}")
         if dtype == torch.float32:
             grad = k5_gradient(torch, kernels["fused_head_tail"], cases[-1][2])
         else:
@@ -836,6 +920,7 @@ def phase_decoder(torch, F):
                                "live flagship decoder")
             beit = time_calls(torch, kernels, beit_calls(torch, cases),
                               "dpt_beit_large_512's decoder shapes")
+            planner = plan_check(torch, cases[0][2][1:])
         del model, rcus, tail, head_io, cases, outs
         torch.cuda.empty_cache()
     log(f"decoder kernels' launches on the live decoder: {live}")
@@ -843,7 +928,10 @@ def phase_decoder(torch, F):
         if not all(counts[name] >= 1 for counts in live.values()):
             fail(f"{name} was launched no time on the live decoder")
     RECORD["decoder"] = {"checks": checks, "live_launches": live, "k5_gradient": grad,
-                         "timed_flagship_bf16": timed, "timed_beit_large_bf16": beit}
+                         "timed_flagship_bf16": timed, "timed_beit_large_bf16": beit,
+                         "cuda_launches_per_call": per_call, "device_us_by_operation": by_op,
+                         "sass": sass,
+                         "plan_check_bf16": planner}
     sources = {"fused_rcu": ("fused_rcu.cu", "fused_rcu.py:137", "the 7 residual conv units"),
                "fused_rcu_tail": ("fused_fusion.cu", "fused_fusion.py:179", "refinenet1's tail"),
                "fused_head_tail": ("fused_head.cu", "fused_head.py:179",
@@ -866,7 +954,12 @@ def phase_decoder(torch, F):
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
             "launches": sum(counts[name] for counts in live.values()),
             "launches_by_path": {f"decoder_live_{d}": counts[name] for d, counts in live.items()},
+            "cuda_launches_per_call": {d: counts[name] for d, counts in per_call.items()},
         })
+        if name in ("fused_rcu", "fused_rcu_tail"):
+            entries[-1]["tensor_cores"] = {"bfloat16": "wgmma fed by TMA (csrc/conv_wgmma.cuh)",
+                                           "float32": "none: CUDA cores",
+                                           "sass": sass[src.split(".")[0]]}
     return entries
 
 
@@ -1442,7 +1535,7 @@ def main():
     with phase("K7 against its plain version"):
         k7 = phase_k7(torch, F, ga)
     with phase("K3, K4, K5 against their plain versions and the live decoder"):
-        k3, k4, k5 = phase_decoder(torch, F)
+        k3, k4, k5 = phase_decoder(torch, F, tensor_core_proof(_build))
     torch.cuda.empty_cache()
     # launches of the attention kernels and K2 on each main path
     path_launches = {}

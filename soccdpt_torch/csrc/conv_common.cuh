@@ -1,6 +1,8 @@
-// Helpers shared by the decoder convolution kernels: the fused residual
-// conv unit (fused_rcu.cu, K3), the fusion-block tail (fused_fusion.cu,
-// K4) and the depth-head tail (fused_head.cu, K5).
+// Helpers of the decoder convolutions on CUDA cores: the f32 route of the
+// fused residual conv unit (fused_rcu.cu, K3) and of the fusion-block tail
+// (fused_fusion.cu, K4), and the depth-head tail (fused_head.cu, K5) in
+// both dtypes. The bf16 route of K3 and K4 runs on the tensor cores
+// (conv_wgmma.cuh) and takes only the upsample's Lerp and blend from here.
 //
 // One block of 256 threads computes a spatial tile of a 3x3 (or 1x1)
 // convolution as an implicit GEMM on CUDA cores. The source tile (pixels

@@ -11,13 +11,23 @@
 // torch computes it. The 1x1 conv runs before the upsample, as the JAX
 // model's FeatureFusionBlock runs it: both are linear, one per pixel and
 // one per channel, so they commute, and the conv then does a quarter of
-// the work (the Pallas kernel applies it after the upsample). Weights f32
-// already rounded to s's type; sums f32; the intermediates rounded to
-// s's type where the plain version rounds them (mid, m, the 1x1 output).
+// the work (the Pallas kernel applies it after the upsample). Sums f32; the
+// intermediates rounded to s's type where the plain version rounds them
+// (mid, m, the 1x1 output). Two routes, one per dtype:
 //
-// Design (simple and right first). One block of 256 threads per (image,
-// TH x TW tile of m). It computes, all in shared memory: mid over the
-// tile and a 2-pixel halo from an s tile with a 3-pixel halo staged 8
+// bf16, on the tensor cores (conv_wgmma.cuh): five launches. The
+// preparation, conv1 and conv2 as in K3 (fused_rcu.cu), conv2's epilogue
+// storing
+// m = bf16(s + conv + b2); the 1x1 conv, the same kernel with one tap and
+// + bo in its epilogue; then upsample2x_bf16 below, each output pixel
+// blended from four neighbours with the clamped indices of Lerp
+// (conv_common.cuh), so nothing outside the image is read. Entries
+// soccdpt_prepare_bf16 and soccdpt_conv_bf16 (conv_wgmma.cuh), and
+// soccdpt_upsample2x_bf16.
+//
+// f32, on CUDA cores (conv_common.cuh): one block of 256 threads per
+// (image, TH x TW tile of m). It computes, all in shared memory: mid over
+// the tile and a 2-pixel halo from an s tile with a 3-pixel halo staged 8
 // channels at a time; m over the tile and a 1-pixel halo (what the
 // upsample reads); the 1x1 conv of m over the same pixels, written over
 // mid; then the 2TH x 2TW output pixels, each blended from four
@@ -25,12 +35,14 @@
 // Halo values outside the image are zeros in mid (conv2's padding); the
 // upsample's neighbour indices are clamped to the image, as torch's are,
 // so it never reads a halo value outside the image (on a GPU a zero
-// weight times an unset value can still be NaN). Any H and W.
+// weight times an unset value can still be NaN). Any H and W. Entry
+// soccdpt_fused_fusion.
 //
 // What bounds it: the two 3x3 convs, 2 * 9 * C multiply-adds per value of
-// m at C = 256: the operations. CUDA cores in f32, as K3 (conv_common.cuh).
+// m at C = 256: the operations.
 
 #include "conv_common.cuh"
+#include "conv_wgmma.cuh"
 
 namespace {
 
@@ -186,36 +198,67 @@ cudaError_t launch(const void* s, const void* w1, const void* b1, const void* w2
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int tile, const void* s, const void* w1, const void* b1, const void* w2,
-                     const void* b2, const void* wo, const void* bo, void* out, int B, int H,
-                     int W, int C, cudaStream_t st) {
-  switch (tile) {
-    case 8: return launch<T, 8, 8>(s, w1, b1, w2, b2, wo, bo, out, B, H, W, C, st);
-    case 4: return launch<T, 4, 4>(s, w1, b1, w2, b2, wo, bo, out, B, H, W, C, st);
-    default: return cudaErrorInvalidValue;
-  }
+// The bf16 route's upsample: y (B, H, W, C) -> out (B, 2H, 2W, C), one
+// thread a pixel and 8 channels (16 bytes), the blend in f32, rounded once.
+__global__ void upsample2x_bf16(const __nv_bfloat16* __restrict__ y,
+                                __nv_bfloat16* __restrict__ out, int B, int H, int W, int C) {
+  const int C8 = C / 8, H2 = 2 * H, W2 = 2 * W;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)B * H2 * W2 * C8) return;
+  const int c = 8 * (int)(i % C8);
+  const size_t pix = i / C8;
+  const int gx = (int)(pix % W2), gy = (int)(pix / W2 % H2), b = (int)(pix / ((size_t)W2 * H2));
+  const float scale_h = H > 1 ? (float)(H - 1) / (float)(H2 - 1) : 0.f;
+  const float scale_w = W > 1 ? (float)(W - 1) / (float)(W2 - 1) : 0.f;
+  const Lerp ly = lerp_2x(gy, H, scale_h), lx = lerp_2x(gx, W, scale_w);
+  const __nv_bfloat16* yb = y + (size_t)b * H * W * C + c;
+  auto load8 = [&](int row, int col, float* f) {
+    const __nv_bfloat16* at = yb + ((size_t)row * W + col) * C;
+    Quad<__nv_bfloat16>::load(at, f);
+    Quad<__nv_bfloat16>::load(at + 4, f + 4);
+  };
+  float a[8], bb[8], cc[8], dd[8], v[8];
+  load8(ly.i0, lx.i0, a);
+  load8(ly.i0, lx.i1, bb);
+  load8(ly.i1, lx.i0, cc);
+  load8(ly.i1, lx.i1, dd);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) v[q] = blend(ly, lx, a[q], bb[q], cc[q], dd[q]);
+  __nv_bfloat16* ob = out + (pix * C + c);
+  Quad<__nv_bfloat16>::store(ob, v);
+  Quad<__nv_bfloat16>::store(ob + 4, v + 4);
 }
 
 }  // namespace
 
 extern "C" {
 
-const char* soccdpt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+const char* soccdpt_error_string(int code) { return wgconv::error_string(code); }
 
-// s: (B, H, W, C), out: (B, 2H, 2W, C), contiguous, f32 or bf16 (is_bf16),
-// C a multiple of 8; w1, w2: (3, 3, C, C) f32; wo: (C, C) f32 [in][out];
+// The f32 route. s: (B, H, W, C), out: (B, 2H, 2W, C), contiguous f32, C a
+// multiple of 8; w1, w2: (3, 3, C, C) f32; wo: (C, C) f32 [in][out];
 // b1, b2, bo: (C,) f32; tile: 8 or 4 (square tiles of s).
 int soccdpt_fused_fusion(const void* s, const void* w1, const void* b1, const void* w2,
                          const void* b2, const void* wo, const void* bo, void* out, int B, int H,
-                         int W, int C, int tile, int is_bf16, void* stream) {
+                         int W, int C, int tile, void* stream) {
   if (B == 0 || H == 0 || W == 0) return (int)cudaGetLastError();
   if (C % KC) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = is_bf16
-      ? dispatch<__nv_bfloat16>(tile, s, w1, b1, w2, b2, wo, bo, out, B, H, W, C, st)
-      : dispatch<float>(tile, s, w1, b1, w2, b2, wo, bo, out, B, H, W, C, st);
-  return (int)err;
+  switch (tile) {
+    case 8: return (int)launch<float, 8, 8>(s, w1, b1, w2, b2, wo, bo, out, B, H, W, C, st);
+    case 4: return (int)launch<float, 4, 4>(s, w1, b1, w2, b2, wo, bo, out, B, H, W, C, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// y: (B, H, W, C), out: (B, 2H, 2W, C), bf16, C a multiple of 8.
+int soccdpt_upsample2x_bf16(const void* y, void* out, int B, int H, int W, int C, void* stream) {
+  const size_t n = (size_t)B * 4 * H * W * (C / 8);
+  if (n == 0) return (int)cudaGetLastError();
+  if (C % 8) return (int)cudaErrorInvalidValue;
+  upsample2x_bf16<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)y, (__nv_bfloat16*)out, B, H, W, C);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -5,28 +5,37 @@
 //
 //   out = x + conv3x3(relu(conv3x3(relu(x)) + b1)) + b2
 //
-// both convolutions with zero padding 1, weights HWIO (3, 3, C, C) as f32
-// already rounded to x's type, biases f32. The intermediate is rounded to
-// x's type, as the Pallas kernel rounds it; sums are f32.
+// both convolutions with zero padding 1, weights HWIO (3, 3, C, C). The
+// intermediate is rounded to x's type, as the Pallas kernel rounds it; sums
+// are f32. Two routes, one per dtype:
 //
-// Design (simple and right first). One block of 256 threads per (image,
-// TH x TW output tile). Phase 1 computes the intermediate over the tile
-// and a 1-pixel halo, (TH+2) x (TW+2) pixels x C channels, from an input
-// tile with a 2-pixel halo staged 8 channels at a time, and keeps it in
-// shared memory: it never reaches device memory. Halo values whose pixel
-// lies outside the image are set to zero there, which is conv2's zero
-// padding (relu(b1 + conv of the padded input) is not zero). Phase 2
-// convolves the intermediate into the output tile and adds b2 and x. Any
-// H and W: the last tiles are ragged and masked.
+// bf16, on the tensor cores (conv_wgmma.cuh): a preparation launch (the
+// weights to bf16 [tap][Ci][Co], the split-K counters to zero), then two
+// launches of one implicit-GEMM convolution on wgmma fed by TMA. conv1
+// takes relu(x) in shared memory and stores mid = bf16(relu(conv + b1))
+// for the pixels of the image; conv2 reads mid through the same
+// zero-filling TMA box, which is exactly its zero padding, and stores
+// bf16(conv + b2 + x). mid (8 MB at 128x128x256) stays in the 50 MB L2
+// between the two; no halo is recomputed. Entries soccdpt_prepare_bf16 and
+// soccdpt_conv_bf16, defined in conv_wgmma.cuh.
+//
+// f32, on CUDA cores (conv_common.cuh): one block of 256 threads per
+// (image, TH x TW output tile). Phase 1 computes the intermediate over the
+// tile and a 1-pixel halo, (TH+2) x (TW+2) pixels x C channels, from an
+// input tile with a 2-pixel halo staged 8 channels at a time, and keeps it
+// in shared memory. Halo values whose pixel lies outside the image are set
+// to zero there, which is conv2's zero padding (relu(b1 + conv of the
+// padded input) is not zero). Phase 2 convolves the intermediate into the
+// output tile and adds b2 and x. Any H and W: the last tiles are ragged and
+// masked. Entry soccdpt_fused_rcu; weights f32. TF32 would keep about
+// three digits, too few for the f32 bound of the Pallas tests (2e-4).
 //
 // What bounds it: at the flagship's widths (C = 256) a 3x3 conv does
-// 9 * C = 2,304 multiply-adds per output value, so the operations bound
-// it, not the bytes. This kernel runs them on CUDA cores in f32 (a
-// 4-channel x P-pixel register tile per thread, weights staged in shared
-// memory) and recomputes conv1 on the halo; tensor cores (mma/wgmma) are
-// the redesign's work.
+// 9 * C = 2,304 multiply-adds per output value: the operations, not the
+// bytes.
 
 #include "conv_common.cuh"
+#include "conv_wgmma.cuh"
 
 namespace {
 
@@ -127,34 +136,25 @@ cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int tile, const void* x, const void* w1, const void* b1, const void* w2,
-                     const void* b2, void* out, int B, int H, int W, int C, cudaStream_t s) {
-  switch (tile) {
-    case 8: return launch<T, 8, 8>(x, w1, b1, w2, b2, out, B, H, W, C, s);
-    case 4: return launch<T, 4, 4>(x, w1, b1, w2, b2, out, B, H, W, C, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-const char* soccdpt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+const char* soccdpt_error_string(int code) { return wgconv::error_string(code); }
 
-// x, out: (B, H, W, C) contiguous, f32 or bf16 (is_bf16), C a multiple of 8;
+// The f32 route. x, out: (B, H, W, C) contiguous f32, C a multiple of 8;
 // w1, w2: (3, 3, C, C) f32; b1, b2: (C,) f32; tile: 8 or 4 (square tiles).
 int soccdpt_fused_rcu(const void* x, const void* w1, const void* b1, const void* w2,
                       const void* b2, void* out, int B, int H, int W, int C, int tile,
-                      int is_bf16, void* stream) {
+                      void* stream) {
   if (B == 0 || H == 0 || W == 0) return (int)cudaGetLastError();
   if (C % KC) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = is_bf16
-      ? dispatch<__nv_bfloat16>(tile, x, w1, b1, w2, b2, out, B, H, W, C, s)
-      : dispatch<float>(tile, x, w1, b1, w2, b2, out, B, H, W, C, s);
-  return (int)err;
+  switch (tile) {
+    case 8: return (int)launch<float, 8, 8>(x, w1, b1, w2, b2, out, B, H, W, C, s);
+    case 4: return (int)launch<float, 4, 4>(x, w1, b1, w2, b2, out, B, H, W, C, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

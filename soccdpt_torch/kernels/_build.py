@@ -87,6 +87,12 @@ def build_all() -> Dict[str, float]:
         return dict(_build_seconds)
 
 
+def library_path(name: str) -> Path:
+    """The shared library that ``csrc/<name>.cu`` builds to (it exists
+    once :func:`build_all` or :func:`load` has run)."""
+    return _lib_path(CSRC / f"{name}.cu")
+
+
 def build_log(name: str) -> str:
     """The compiler's output for ``csrc/<name>.cu`` (registers, spills)."""
     path = BUILD_DIR / f"{name}.log"

@@ -13,15 +13,25 @@ any H and W; the output has x's dtype; sums are f32.
 
 Bound on the H100: operations. At the flagship's widths (C = 256) one RCU
 at 64 x 64 does 2 x 9 x 256 x 256 multiply-adds per pixel, 9.7 GFLOP,
-against 4 MB of bf16 activations and weights. The kernel keeps the first
-conv's output in shared memory (it never reaches device memory), as the
-Pallas kernel keeps it in VMEM, and runs both convs on CUDA cores in f32.
+against 4 MB of bf16 activations and weights. Two routes:
 
-``fused_rcu`` launches the kernel for CUDA tensors and runs
-``fused_rcu_plain`` for CPU tensors; ``fused_rcu.launches`` counts kernel
-launches. Like the Pallas kernel it is forward only: a CUDA call that
-would need a gradient raises. The JAX package wires it into no model,
-and neither does the port: it is a standalone op.
+* bf16: three launches. One prepares the call (both weights to bf16 in
+  the kernel's layout, the split-K counters to zero); then two of the
+  tensor-core convolution (``csrc/conv_wgmma.cuh``; wgmma fed by TMA),
+  planned by ``_conv.plan_conv``. conv1 takes relu(x) and stores the
+  intermediate ``mid`` in bf16 (8 MB at 128 x 128 x 256, held by the 50 MB
+  L2); conv2 reads it through the TMA box that zero-fills its padding and
+  adds b2 and x. ``tile`` raises here.
+* f32: one launch on CUDA cores, the intermediate kept in shared memory,
+  conv1 recomputed on a 1-pixel halo; ``tile`` (8 or 4) fixes its square
+  tile. The tensor cores would round f32 to TF32, about three digits,
+  where the Pallas tests hold f32 to 2e-4.
+
+``fused_rcu`` launches the kernels for CUDA tensors and runs
+``fused_rcu_plain`` for CPU tensors; ``fused_rcu.launches`` counts calls
+of the op on the card. Like the Pallas kernel it is forward only: a CUDA
+call that would need a gradient raises. The JAX package wires it into no
+model, and neither does the port: it is a standalone op.
 """
 from __future__ import annotations
 
@@ -33,21 +43,30 @@ import torch.nn.functional as F
 from . import _build
 from ._conv import (
     CO,
+    EPI_CONV1,
+    EPI_RESIDUAL,
     KC,
+    Scratch,
     activation,
     call,
     check_activation,
     check_no_grad,
     check_shape,
+    check_tile,
+    conv_bf16,
     kernel_param,
     oihw,
     pick_tile,
+    plan_conv,
+    prepare_bf16,
+    wgmma_bias,
 )
 
 
-def smem_bytes(tile: int, C: int, itemsize: int) -> int:
-    """Shared memory of one block (``csrc/fused_rcu.cu``, ``launch``)."""
-    return 9 * KC * CO * 4 + (tile + 4) ** 2 * KC * itemsize + (tile + 2) ** 2 * (C + 8) * itemsize
+def smem_bytes(tile: int, C: int) -> int:
+    """Shared memory of one block of the f32 route (``csrc/fused_rcu.cu``,
+    ``launch``)."""
+    return 9 * KC * CO * 4 + ((tile + 4) ** 2 * KC + (tile + 2) ** 2 * (C + 8)) * 4
 
 
 def fused_rcu_plain(x, w1, b1, w2, b2):
@@ -68,20 +87,41 @@ def _check(x, w1, b1, w2, b2):
         check_shape(b, [(C,)], name)
 
 
-def _launch(x, w1, b1, w2, b2, tile):
-    check_no_grad("fused RCU", x, w1, b1, w2, b2)
-    _check(x, w1, b1, w2, b2)
+def _launch_f32(x, w1, b1, w2, b2, tile):
     B, H, W, C = x.shape
-    tile = pick_tile(B, H, W, lambda t: smem_bytes(t, C, x.element_size()), tile)
-    x = activation(x)
+    tile = pick_tile(B, H, W, lambda t: smem_bytes(t, C), tile)
     params = [kernel_param(w1, (9, C, C), x), kernel_param(b1, (C,), x),
               kernel_param(w2, (9, C, C), x), kernel_param(b2, (C,), x)]
     out = torch.empty_like(x)
     lib = _build.load("fused_rcu")
-    rc = call(lib, "soccdpt_fused_rcu", [x, *params, out],
-              [B, H, W, C, tile, int(x.dtype == torch.bfloat16)],
+    rc = call(lib, "soccdpt_fused_rcu", [x, *params, out], [B, H, W, C, tile],
               torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "fused RCU kernel")
+    return out
+
+
+def _launch_bf16(x, w1, b1, w2, b2, plan):
+    """The bf16 route with both convolutions launched as ``plan`` says
+    (``plan_conv`` of x's shape; chip_smoke.py times its neighbours)."""
+    C = x.shape[-1]
+    lib = _build.load("fused_rcu")
+    scratch = Scratch([plan, plan], x.device)
+    w1, w2 = prepare_bf16(lib, x, [w1, w2], scratch)
+    b1, b2 = wgmma_bias(b1, x), wgmma_bias(b2, x)
+    mid, out = torch.empty_like(x), torch.empty_like(x)
+    conv_bf16(lib, plan, scratch, x, w1, b1, mid, EPI_CONV1)
+    conv_bf16(lib, plan, scratch, mid, w2, b2, out, EPI_RESIDUAL, residual=x)
+    return out
+
+
+def _launch(x, w1, b1, w2, b2, tile):
+    check_no_grad("fused RCU", x, w1, b1, w2, b2)
+    _check(x, w1, b1, w2, b2)
+    x = activation(x)
+    if x.dtype == torch.bfloat16:
+        out = _launch_bf16(x, w1, b1, w2, b2, plan_conv(*x.shape, taps=9))
+    else:
+        out = _launch_f32(x, w1, b1, w2, b2, tile)
     fused_rcu.launches += 1
     return out
 
@@ -94,10 +134,12 @@ def fused_rcu(
     b2: torch.Tensor,
     tile: Optional[int] = None,
 ) -> torch.Tensor:
-    """The fused residual conv unit: the CUDA kernel for CUDA tensors, the
+    """The fused residual conv unit: the CUDA kernels for CUDA tensors, the
     plain version for CPU tensors. Returns (B, H, W, C) in x's dtype.
-    ``tile`` (8 or 4) fixes the kernel's square tile; by default it is the
-    largest that fits and still gives every SM a block."""
+    ``tile`` (8 or 4, f32 only) fixes the f32 route's square tile; by
+    default it is the largest that fits and still gives every SM a block.
+    A bf16 call with a ``tile`` raises ``ValueError``."""
+    check_tile(x, tile, "fused_rcu")
     if x.device.type == "cuda":
         return _launch(x, w1, b1, w2, b2, tile)
     if x.device.type != "cpu":

@@ -37,12 +37,17 @@ Tolerances, with their reasons:
   TF32 off for the plain version's cuDNN convolutions; bf16: atol = rtol =
   2e-2: the kernel rounds each intermediate once where the plain version
   may round twice (a conv's output, then the residual sum), one bf16 step
-  (2^-8 of the value) on values of size 1 to 10.
+  (2^-8 of the value) on values of size 1 to 10. K3 and K4 run f32 on CUDA
+  cores (``tile`` 8 or 4) and bf16 on the tensor cores (planned launches,
+  no ``tile``); at C = 256 the bf16 cases take atol as 2e-2 of the
+  output's largest value, as chip_smoke.py does: the rounding step of the
+  intermediate carries into outputs where the conv and the residual cancel.
 """
 import numpy as np
 import pytest
 import torch
 
+from soccdpt_torch.kernels import _conv
 from soccdpt_torch.kernels.global_attention import (
     global_attention,
     global_attention_backward,
@@ -392,8 +397,12 @@ DECODER_CASES = [
 ]
 
 
-@pytest.mark.parametrize("tile", [None, 8, 4])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# (dtype, tile): the f32 route with its planned and both fixed tiles, the
+# bf16 route, which plans its own launch
+ROUTES = [(torch.float32, None), (torch.float32, 8), (torch.float32, 4), (torch.bfloat16, None)]
+
+
+@pytest.mark.parametrize("dtype,tile", ROUTES)
 @pytest.mark.parametrize("B,H,W,C,scale", DECODER_CASES)
 def test_fused_rcu_kernel_matches_plain(no_tf32, dtype, B, H, W, C, scale, tile):
     x, w1, b1, w2, b2, _, _ = _decoder_inputs(B, H, W, C, no_tf32, scale=scale)
@@ -406,8 +415,7 @@ def test_fused_rcu_kernel_matches_plain(no_tf32, dtype, B, H, W, C, scale, tile)
     _close(got, fused_rcu_plain(x, w1, b1, w2, b2), DECODER_F32_TOL["rcu"])
 
 
-@pytest.mark.parametrize("tile", [None, 8, 4])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype,tile", ROUTES)
 @pytest.mark.parametrize("B,H,W,C,scale", DECODER_CASES)
 def test_fused_rcu_tail_kernel_matches_plain(no_tf32, dtype, B, H, W, C, scale, tile):
     s, w1, b1, w2, b2, wo, bo = _decoder_inputs(B, H, W, C, no_tf32, seed=1, scale=scale)
@@ -425,22 +433,114 @@ def test_fused_rcu_tail_kernel_matches_plain(no_tf32, dtype, B, H, W, C, scale, 
     _close(got, fused_rcu_tail_plain(s, w1, b1, w2, b2, wo, bo), DECODER_F32_TOL["tail"])
 
 
+def _close_bf16(got, want):
+    """chip_smoke.py's bf16 bound: 2e-2 of the largest |value| plus 2e-2
+    relative."""
+    want = want.float()
+    atol = DECODER_BF16_TOL * float(want.abs().max())
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.cpu().numpy(), atol=atol,
+                               rtol=DECODER_BF16_TOL)
+
+
+# (B, H, W, C): the flagship's (8..64) and BEiT-large's (16..128) decoder
+# maps at batch 1 and 2, ragged maps (9x11 split over K), and C of 8, 16
+# and 64, below one K-step of 64 channels
+BF16_SHAPES = ([(B, s, s, 256) for B in (1, 2) for s in (8, 16, 32, 64, 128)]
+               + [(1, 7, 9, 16), (2, 5, 13, 64), (1, 9, 11, 256), (1, 8, 8, 8), (2, 16, 16, 16),
+                  (1, 32, 32, 64)])
+
+
+@pytest.mark.parametrize("op", ["rcu", "tail"])
+@pytest.mark.parametrize("B,H,W,C", BF16_SHAPES)
+def test_tensor_core_route_matches_plain(no_tf32, op, B, H, W, C):
+    """The bf16 route at every decoder shape, against the plain version in
+    bf16; the flagship's 8x8 and 16x16 maps are split over K by the planner."""
+    s, w1, b1, w2, b2, wo, bo = _decoder_inputs(B, H, W, C, no_tf32, seed=2,
+                                                scale=0.05 if C <= 64 else 0.02)
+    s = s.bfloat16()
+    with torch.no_grad():
+        if op == "rcu":
+            got, want = fused_rcu(s, w1, b1, w2, b2), fused_rcu_plain(s, w1, b1, w2, b2)
+        else:
+            got = fused_rcu_tail(s, w1, b1, w2, b2, wo, bo)
+            want = fused_rcu_tail_plain(s, w1, b1, w2, b2, wo, bo)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("C", [8, 48, 256])
+@pytest.mark.parametrize("lib_name", ["fused_rcu", "fused_fusion"])
+def test_prepare_converts_any_weight_layout_and_zeroes_the_counters(card, lib_name, C):
+    """The bf16 route's one preparation launch against PyTorch's own cast:
+    a module's OIHW weight seen as HWIO, a contiguous HWIO f32 weight, a
+    bf16 one, and a transposed (C, C) 1x1 weight; the counters end at 0."""
+    from soccdpt_torch.kernels import _build
+
+    g = torch.Generator(device=card).manual_seed(C)
+    oihw = torch.randn(C, C, 3, 3, device=card, generator=g)
+    weights = [oihw.permute(2, 3, 1, 0), torch.randn(3, 3, C, C, device=card, generator=g),
+               torch.randn(C, C, device=card, generator=g).t().reshape(1, 1, C, C)]
+    if lib_name == "fused_rcu":
+        weights = [weights[0], weights[1].bfloat16()]
+    scratch = _conv.Scratch([_conv.plan_conv(1, 8, 8, 256, 9)], card)
+    scratch.counters.fill_(5)
+    like = torch.zeros(1, 1, 1, C, device=card, dtype=torch.bfloat16)
+    outs = _conv.prepare_bf16(_build.load(lib_name), like, weights, scratch)
+    torch.cuda.synchronize()
+    for w, got in zip(weights, outs):
+        want = w.to(torch.bfloat16).reshape(-1, C, C)
+        assert torch.equal(got, want)
+    assert int(scratch.counters.abs().sum()) == 0
+
+
+def test_split_k_sums_are_the_same_every_run(card):
+    """A shape the planner splits over K: the partials are added in split
+    order by the last CTA of each tile, so two runs agree to the bit."""
+    B, H, W, C = 1, 8, 8, 256
+    assert _conv.plan_conv(B, H, W, C, 9).splits > 1
+    x, w1, b1, w2, b2, _, _ = _decoder_inputs(B, H, W, C, card, seed=3, scale=0.02)
+    x = x.bfloat16()
+    with torch.no_grad():
+        runs = [fused_rcu(x, w1, b1, w2, b2) for _ in range(3)]
+    torch.cuda.synchronize()
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+    _close_bf16(runs[0], fused_rcu_plain(x, w1, b1, w2, b2))
+
+
+@pytest.mark.parametrize("op", ["rcu", "tail"])
+def test_a_bf16_call_with_a_tile_raises_on_the_card(card, op):
+    s, w1, b1, w2, b2, wo, bo = _decoder_inputs(1, 8, 8, 16, card)
+    with torch.no_grad(), pytest.raises(ValueError, match="f32 route only"):
+        if op == "rcu":
+            fused_rcu(s.bfloat16(), w1, b1, w2, b2, tile=8)
+        else:
+            fused_rcu_tail(s.bfloat16(), w1, b1, w2, b2, wo, bo, tile=4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kernel", ["rcu", "tail"])
-def test_decoder_kernels_keep_the_border_at_zero_padding(no_tf32, kernel):
+def test_decoder_kernels_keep_the_border_at_zero_padding(no_tf32, kernel, dtype):
     """The all-ones case of tests/test_fused_rcu.py: the intermediate's
-    halo outside the image must be zero, not relu(b1 + conv of padding)."""
+    halo outside the image must be zero, not relu(b1 + conv of padding). f32
+    at both tiles to rtol 1e-5; bf16 (one planned launch) to the bf16 bound."""
     C = 8
-    x = torch.ones(1, 8, 8, C, device=no_tf32)
+    x = torch.ones(1, 8, 8, C, device=no_tf32, dtype=dtype)
     w = torch.full((3, 3, C, C), 0.01, device=no_tf32)
     b = torch.zeros(C, device=no_tf32)
-    for tile in (8, 4):
+    for tile in ((8, 4) if dtype == torch.float32 else (None,)):
         if kernel == "rcu":
             got, want = fused_rcu(x, w, b, w, b, tile=tile), fused_rcu_plain(x, w, b, w, b)
         else:
             wo = 0.5 * torch.eye(C, device=no_tf32)
             got = fused_rcu_tail(x, w, b, w, b, wo, b, tile=tile)
             want = fused_rcu_tail_plain(x, w, b, w, b, wo, b)
-        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5)
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5)
+        else:
+            _close_bf16(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
