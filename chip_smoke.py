@@ -10,15 +10,16 @@ Phases, each of which fails the run on any error:
    TF32 off for the parity phases;
 2. every kernel against its plain PyTorch version on the card, at the
    shapes its served path gives it, with the stated tolerances, and timed
-   with CUDA events beside its memory/compute bound and a library
-   yardstick: K1 window attention, K2 segment sum, K6 global attention,
-   K7 its backward;
+   by CUDA-graph replay beside its memory/compute bound and a library
+   yardstick: K1 window attention, K2 segment sum (against the grid's
+   zeros and ``index_add_``), K6 global attention, K7 its backward
+   (against SDPA's backward, replayed alone); ``cuobjdump -sass`` of the
+   K3, K4, K6 and K7 libraries must show ``HGMMA`` and ``UTMALDG``;
 3. the decoder kernels K3 (fused residual conv unit), K4 (fusion-block
    tail) and K5 (depth-head tail), standalone ops on no path of the
    system, as in the JAX package: against their plain versions at the
    flagship's and BEiT-large's decoder shapes (batch 1 and 2) and at
-   ragged ones, in f32 and bf16 (K3 and K4 run bf16 on the tensor cores,
-   and ``cuobjdump -sass`` of their libraries must show ``HGMMA``); then on
+   ragged ones, in f32 and bf16 (K3 and K4 run bf16 on the tensor cores); then on
    the live flagship decoder, whose modules' inputs and outputs forward
    hooks capture during one served request, each kernel held to the module
    it replaces on that module's weights (the launch counts set to 0 just
@@ -46,7 +47,8 @@ Phases, each of which fails the run on any error:
    each: one f32 loss and its gradients on the card against the CPU's
    through the plain versions; five bf16 steps whose loss must stay
    finite and fall, with the launch counts read around every step; the
-   median step time and a device-time profile of one step.
+   median step time, the step's peak memory above what is allocated when
+   the peak is reset, and a device-time profile of one step.
 
 It prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -106,26 +108,30 @@ def smi():
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, iters=20, graph=True):
+def cuda_ms(torch, fn, iters=20, graph=True, stream=None):
     """Mean device milliseconds per call of ``fn``, from CUDA events.
 
     With ``graph`` the calls are captured once into a CUDA graph and the
     graph is replayed, so the time is the card's and not the host's
     Python and launch overhead. A function with a data-dependent shape
     (a boolean-mask index syncs the host) cannot be captured and is timed
-    as launched (``graph=False``). Inputs stay warm in the 50 MB L2, as
-    they are in the served forward, where their producer just wrote them.
+    as launched (``graph=False``). ``stream``: warm up and capture on this
+    stream (autograd runs a backward op on its forward's stream, so a
+    backward is captured on the stream its forward ran on). Inputs stay
+    warm in the 50 MB L2, as they are in the served forward, where their
+    producer just wrote them.
     """
-    fn()
+    if stream is None:
+        fn()
     torch.cuda.synchronize()
     if graph:
-        side = torch.cuda.Stream()
+        side = stream or torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             fn()
         torch.cuda.current_stream().wait_stream(side)
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        with torch.cuda.graph(g, stream=stream):
             for _ in range(iters):
                 fn()
         run, per_run = g.replay, iters
@@ -245,9 +251,9 @@ def phase_k1(torch, F, wa):
 # K6: global attention
 # ---------------------------------------------------------------------------
 
-# (B, H, T, d): beitl16_512 at batch 1, the 384-px base models at batch 2,
-# and the test config's ragged tiles
-K6_CHECKS = [(1, 16, 1025, 64), (2, 12, 577, 64), (2, 2, 65, 16)]
+# (B, H, T, d): beitl16_512 at batch 1 and 2 (the training step's), the
+# 384-px base models at batch 2, and the test config's ragged tiles
+K6_CHECKS = [(1, 16, 1025, 64), (2, 16, 1025, 64), (2, 12, 577, 64), (2, 2, 65, 16)]
 # timed: (label, (B, H, T, d), bias dtype name or None), 24 launches per bf16 forward
 K6_FORWARDS = [
     ("beitl16_512, f32 bias", (1, 16, 1025, 64), "float32"),
@@ -272,7 +278,7 @@ def k6_bytes_flops(B, H, T, d, itemsize, bias_itemsize):
     return 4 * B * H * T * d * itemsize + H * T * T * bias_itemsize, 4 * B * H * T * T * d
 
 
-def phase_k6(torch, F, ga):
+def phase_k6(torch, F, ga, sass):
     checks, worst = [], {"float32": 0.0, "bfloat16": 0.0}
     for i, (B, H, T, d) in enumerate(K6_CHECKS):
         for bias_dtype in (torch.float32, torch.bfloat16, None):
@@ -297,6 +303,8 @@ def phase_k6(torch, F, ga):
                 if not ok:
                     fail(f"K6 disagrees with its plain version at {B}x{H}x{T}x{d} "
                          f"bias={bname} {name}")
+                if not torch.equal(got, ga.global_attention(q, k, v, bias, scale)):
+                    fail(f"K6 gave other bits on a second call at {B}x{H}x{T}x{d} {name}")
 
     # One bf16 batch-1 forward is 24 launches, each block with a bias of its
     # own, so no launch finds its bias in L2: three distinct biases in turn.
@@ -329,19 +337,28 @@ def phase_k6(torch, F, ga):
                          "bound_by": "bytes" if byte_ms >= flop_ms else "operations"})
         log(f"K6 time, 24 launches, bf16, {label}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
-            f"{max(byte_ms, flop_ms):.4f} ms ({forwards[-1]['bound_by']})")
+            f"{max(byte_ms, flop_ms):.4f} ms ({forwards[-1]['bound_by']}): "
+            f"{max(byte_ms, flop_ms) / t['ms']:.1%} of the roofline")
+        if label == K6_FORWARDS[0][0]:
+            launches, by_op = cuda_launches(torch, lambda: ga.global_attention(
+                q, k, v, biases[0], scale))
     RECORD["k6"] = {"checks": checks, "forwards": forwards}
     main = forwards[0]
+    log(f"K6: CUDA launches of one bf16 call at {main['shape']}: {launches} ({by_op})")
     return {
         "name": "global_attention",
         "route": "cuda",
         "source": "soccdpt_torch/csrc/global_attention.cu",
-        "replaces": "soccdpt_tpu/ops/global_attention.py:85",
+        "replaces": "soccdpt_tpu/ops/global_attention.py:135",
         "max_abs_err": worst["float32"],
         "max_abs_err_bf16": worst["bfloat16"],
         "tolerance": {"float32": K6_F32_TOL, "bfloat16": K6_BF16_TOL},
         **{key: main[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "timed": "the 24 launches of one bf16 batch-1 forward of beitl16_512, f32 bias",
+        "roofline_share": main["bound_ms"] / main["ms"],
+        "cuda_launches_per_call": launches,
+        "tensor_cores": {"bfloat16": "wgmma fed by TMA (csrc/attention_wgmma.cuh)",
+                         "float32": "none: CUDA cores", "sass": sass["global_attention"]},
         "other_forwards": forwards[1:],
     }
 
@@ -370,7 +387,7 @@ def k7_bytes_flops(B, H, T, d, itemsize, bias_itemsize):
     return nbytes, 10 * B * H * T * T * d
 
 
-def phase_k7(torch, F, ga):
+def phase_k7(torch, F, ga, sass):
     checks, worst = [], {"float32": 0.0, "bfloat16": 0.0}
     for i, (B, H, T, d, with_bias) in enumerate(K7_CHECKS):
         for dtype in (torch.float32, torch.bfloat16):
@@ -416,17 +433,24 @@ def phase_k7(torch, F, ga):
         scale = d ** -0.5
         fwd = [ga.global_attention_with_lse(q, k, v, b, scale) for b in biases]
         per_backward = K6_LAUNCHES_PER_FORWARD / len(biases)
-        # the library yardstick: autograd through SDPA, mask cast beforehand
+        # the library yardstick: autograd through SDPA, mask cast beforehand.
+        # Its forward runs on a stream of its own, so that autograd runs the
+        # backward there and the backward alone is captured and replayed
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
         masks = [None if b is None else b.to(q.dtype)[None].requires_grad_() for b in biases]
-        outs = [F.scaled_dot_product_attention(ql, kl, vl, attn_mask=m, scale=scale)
-                for m in masks]
+        sdpa_stream = torch.cuda.Stream()
+        sdpa_stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(sdpa_stream):
+            outs = [F.scaled_dot_product_attention(ql, kl, vl, attn_mask=m, scale=scale)
+                    for m in masks]
 
         def library():
             for o, m in zip(outs, masks):
                 torch.autograd.grad(o, (ql, kl, vl) if m is None else (ql, kl, vl, m), g,
                                     retain_graph=True)
 
+        with torch.cuda.stream(sdpa_stream):
+            as_launched = per_backward * cuda_ms(torch, library, iters=5, graph=False)
         t = {
             "ms": per_backward * cuda_ms(torch, lambda: [
                 ga.global_attention_backward(q, k, v, b, scale, g, out=o, lse=l)
@@ -434,10 +458,13 @@ def phase_k7(torch, F, ga):
             "plain_ms": per_backward * cuda_ms(torch, lambda: [
                 ga.global_attention_backward_plain(q, k, v, b, scale, g) for b in biases],
                 iters=3),
-            # autograd's engine is not captured into a graph; at milliseconds a
-            # call the host's launch overhead does not show
-            "library_ms": per_backward * cuda_ms(torch, library, iters=5, graph=False),
+            "library_ms": per_backward * cuda_ms(torch, library, iters=5, stream=sdpa_stream),
+            "library_ms_as_launched": as_launched,
         }
+        if B >= 2:  # the dq kernel holding one image's dq at a time, or two
+            t["ms_by_images_per_dq_cta"] = {n: per_backward * cuda_ms(torch, lambda: [
+                ga._launch_backward(q, k, v, b, o, l, g, scale, b is not None, img=n)
+                for b, (o, l) in zip(biases, fwd)], iters=5) for n in (1, 2)}
         nbytes, flops = k7_bytes_flops(B, H, T, d, 2, biases[0].element_size() if bias_name else 0)
         byte_ms = K6_LAUNCHES_PER_FORWARD * nbytes / HBM_BYTES_PER_S * 1e3
         flop_ms = K6_LAUNCHES_PER_FORWARD * flops / PEAK_FLOPS["bfloat16"] * 1e3
@@ -447,11 +474,18 @@ def phase_k7(torch, F, ga):
                           "bound_ms": max(byte_ms, flop_ms),
                           "bound_by": "bytes" if byte_ms >= flop_ms else "operations"})
         log(f"K7 time, 24 launches, bf16, {label}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, sdpa backward {t['library_ms']:.4f} ms, bound "
-            f"{max(byte_ms, flop_ms):.4f} ms ({backwards[-1]['bound_by']})")
+            f"{t['plain_ms']:.4f} ms, sdpa backward {t['library_ms']:.4f} ms by graph replay "
+            f"({t['library_ms_as_launched']:.4f} ms as launched), bound "
+            f"{max(byte_ms, flop_ms):.4f} ms ({backwards[-1]['bound_by']}): "
+            f"{max(byte_ms, flop_ms) / t['ms']:.1%} of the roofline"
+            + (f"; by images a dq CTA holds {t['ms_by_images_per_dq_cta']}" if B >= 2 else ""))
+        if label == K7_BACKWARDS[0][0]:
+            launches, by_op = cuda_launches(torch, lambda: ga.global_attention_backward(
+                q, k, v, biases[0], scale, g, out=fwd[0][0], lse=fwd[0][1]))
         del fwd, outs, masks
     RECORD["k7"] = {"checks": checks, "backwards": backwards}
     main = backwards[0]
+    log(f"K7: CUDA launches of one bf16 call at {main['shape']}: {launches} ({by_op})")
     return {
         "name": "global_attention_backward",
         "route": "cuda",
@@ -462,6 +496,13 @@ def phase_k7(torch, F, ga):
         "tolerance": {"float32": K7_F32_TOL, "bfloat16": K7_BF16_TOL},
         **{key: main[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "timed": "the 24 launches of one bf16 batch-1 backward of beitl16_512, f32 bias",
+        "library": "autograd through SDPA (mask cast beforehand), its backward alone by "
+                   "CUDA-graph replay",
+        "library_ms_as_launched": main["library_ms_as_launched"],
+        "roofline_share": main["bound_ms"] / main["ms"],
+        "cuda_launches_per_call": launches,
+        "tensor_cores": {"bfloat16": "wgmma fed by TMA (csrc/attention_wgmma.cuh)",
+                         "float32": "none: CUDA cores", "sass": sass["global_attention_bwd"]},
         "other_backwards": backwards[1:],
     }
 
@@ -514,7 +555,11 @@ def phase_k2(torch, ss, occ_problem):
         if not ok:
             fail(f"K2 disagrees with its plain version: {name}")
 
-    # timing on the served batch-1 frame's own keys and values
+    # timing on the served batch-1 frame's own keys and values. K2 allocates
+    # and zeroes its grid in every call, so the library call does too: the
+    # grid's zeros, then index_add_ of the rows kept (filtered beforehand,
+    # which K2 does inside). index_add_ into a grid made once is recorded
+    # beside it.
     l, v, s = occ_problem
     keep = (l >= 0) & (l < s)
     lk, vk = l[keep].long(), v[keep]
@@ -522,14 +567,17 @@ def phase_k2(torch, ss, occ_problem):
     t = {
         "ms": cuda_ms(torch, lambda: ss.segment_sum(l, v, s)),
         "plain_ms": cuda_ms(torch, lambda: ss.segment_sum_plain(l, v, s), graph=False),
-        "library_ms": cuda_ms(torch, lambda: acc.index_add_(0, lk, vk)),
+        "library_ms": cuda_ms(torch, lambda: torch.zeros(s, v.shape[1], device=dev).index_add_(
+            0, lk, vk)),
+        "index_add_without_the_fill_ms": cuda_ms(torch, lambda: acc.index_add_(0, lk, vk)),
     }
     nbytes = k2_bytes(l, s, v.shape[1])
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flop_ms = int(keep.sum()) * v.shape[1] / PEAK_FLOPS["float32"] * 1e3
     log(f"K2 time, served frame ({l.numel()} rows, {int(keep.sum())} kept, {s} cells): "
-        f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, index_add_ "
-        f"{t['library_ms']:.4f} ms, bound {max(byte_ms, flop_ms):.4f} ms")
+        f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, zeros + index_add_ "
+        f"{t['library_ms']:.4f} ms (index_add_ alone {t['index_add_without_the_fill_ms']:.4f} ms), "
+        f"bound {max(byte_ms, flop_ms):.4f} ms")
     RECORD["k2"] = {"checks": checks, "timing": {**t, "rows": l.numel(),
                                                  "kept": int(keep.sum()), "bytes": nbytes}}
     return {
@@ -542,7 +590,9 @@ def phase_k2(torch, ss, occ_problem):
         **t,
         "bound_ms": max(byte_ms, flop_ms),
         "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
-        "timed": "one served 1080p frame's keys into the 256x256x32x3 grid",
+        "timed": "one served 1080p frame's keys into the 256x256x32x3 grid, its zero fill "
+                 "included",
+        "library": "torch.zeros of the grid, then index_add_ of the rows kept",
     }
 
 
@@ -825,19 +875,19 @@ def plan_check(torch, weights):
 
 def tensor_core_proof(_build):
     """``HGMMA`` (wgmma in SASS) and ``UTMALDG`` (TMA loads) counted in the
-    built K3 and K4 libraries: their bf16 route must run on the tensor
-    cores, fed by TMA."""
+    built K3, K4, K6 and K7 libraries: their bf16 route must run on the
+    tensor cores, fed by TMA."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
-    for name in ("fused_rcu", "fused_fusion"):
+    for name in ("fused_rcu", "fused_fusion", "global_attention", "global_attention_bwd"):
         sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True,
                               text=True, check=True).stdout
         counts[name] = {"HGMMA": sass.count("HGMMA"), "UTMALDG": sass.count("UTMALDG")}
         if counts[name]["HGMMA"] == 0 or counts[name]["UTMALDG"] == 0:
             fail(f"the SASS of {name}'s library shows no HGMMA or no UTMALDG: {counts[name]}")
-    log(f"tensor cores in the decoder libraries (cuobjdump -sass): {counts}")
+    log(f"tensor cores in the K3, K4, K6, K7 libraries (cuobjdump -sass): {counts}")
     return counts
 
 
@@ -1411,9 +1461,16 @@ def phase_training(torch, card, label):
     set_tf32(torch, True)
 
     # --- (b) the main path: five bf16 steps on that batch, counts from 0 ------
+    torch.cuda.synchronize()
+    before_trainer = torch.cuda.memory_allocated()
     trainer = Trainer(mcfg, TrainConfig(amp=True, **base))
     state = trainer.init_state(seed=0)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # what is allocated when the peak is reset (the model and its optimizer
+    # state, and whatever earlier phases still hold): the steps' own peak is
+    # the part above it
+    torch.cuda.synchronize()
+    at_reset = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     launches = {name: 0 for name in counters}
     losses, times = [], []
@@ -1461,7 +1518,11 @@ def phase_training(torch, card, label):
                             "to_device_batch_ms": to_device_ms,
                             "step_ms_batch_on_device": on_device,
                             "median_step_ms_batch_on_device": float(np.median(on_device)),
-                            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+                            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                            "allocated_before_the_trainer_gb": before_trainer / 1e9,
+                            "allocated_at_reset_gb": at_reset / 1e9,
+                            "peak_above_reset_gb":
+                                (torch.cuda.max_memory_allocated() - at_reset) / 1e9}
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1488,7 +1549,12 @@ def phase_training(torch, card, label):
         f"batch (steps {[round(t, 1) for t in times]}; the host-to-device batch alone "
         f"{to_device_ms:.1f} ms), {resident:.3f} ms with the batch on the card (steps "
         f"{[round(t, 1) for t in on_device]}), peak memory "
-        f"{record['steps_bf16']['peak_memory_gb']:.2f} GB ({card}); one profiled step: "
+        f"{record['steps_bf16']['peak_memory_gb']:.2f} GB, of which "
+        f"{record['steps_bf16']['allocated_at_reset_gb']:.2f} GB were allocated when it was reset "
+        f"({record['steps_bf16']['allocated_before_the_trainer_gb']:.2f} GB before the trainer "
+        f"was built) and {record['steps_bf16']['peak_above_reset_gb']:.2f} GB are the steps' own "
+        f"({card}); "
+        f"one profiled step: "
         f"{device_ms:.3f} ms of device time in {record['launches_per_step']} launches, busy "
         f"share {device_ms / resident:.3f} of the step with the batch on the card; by kernel "
         + ", ".join(f"{n} {ms:.3f} ms ({ms / device_ms:.1%})" for n, ms in by_kernel.items())
@@ -1530,12 +1596,13 @@ def main():
 
     with phase("K1 against its plain version"):
         k1 = phase_k1(torch, F, wa)
+    sass = tensor_core_proof(_build)
     with phase("K6 against its plain version"):
-        k6 = phase_k6(torch, F, ga)
+        k6 = phase_k6(torch, F, ga, sass)
     with phase("K7 against its plain version"):
-        k7 = phase_k7(torch, F, ga)
+        k7 = phase_k7(torch, F, ga, sass)
     with phase("K3, K4, K5 against their plain versions and the live decoder"):
-        k3, k4, k5 = phase_decoder(torch, F, tensor_core_proof(_build))
+        k3, k4, k5 = phase_decoder(torch, F, sass)
     torch.cuda.empty_cache()
     # launches of the attention kernels and K2 on each main path
     path_launches = {}

@@ -11,50 +11,60 @@
 //   dbias[h] = sum over b of dS[b, h]
 //
 // over (B, H, T, D) tensors, bf16 or f32; the bias is f32 or bf16 and is
-// read in its own type; dbias is f32. P stays f32 in all five products, as
-// in the Pallas kernel; every sum is f32 and is rounded to the input type
-// once, when dq, dk and dv are written.
+// read in its own type; dbias is f32. Every sum is f32 and is rounded to the
+// input type once, when dq, dk and dv are written.
 //
-// Design (simple and right first, on CUDA cores, no atomics: the result
-// does not depend on the order blocks run in).
+// Who sums what. dq is a sum over keys and belongs to a CTA of query rows;
+// dk and dv are sums over queries and belong to a CTA of keys. The TPU
+// kernel keeps dk and dv resident across consecutive grid steps, which a
+// CUDA grid cannot do. So there are two kernels, each recomputing the S and
+// dP tiles it needs (seven tile products for the five of the formulas), and
+// no atomics: the result does not depend on the order CTAs run in, and two
+// calls give the same bits. The softmax statistics come from the forward
+// (each row's log-sum-exp), so P = exp(s - lse) is exact per tile.
+//   - the dq kernel owns (head, query rows) for every image and loops over
+//     the images inside the CTA, so it also owns its rows of dbias and sums
+//     them over the batch without atomics. Its prologue computes delta from
+//     g and out and leaves it in device memory for the other kernel, which
+//     runs after it on the same stream.
+//   - the dk/dv kernel owns (image, head, keys) and walks the queries. It
+//     computes the transposed tiles S^T = K q^T and dP^T = V g^T, so that
+//     its own keys are the rows of the sums and dk, dv accumulate as the
+//     forward's output does; its bias reads run down a column (a quad reads
+//     8 consecutive keys of one query row), every byte of each sector used.
 //
-// * The softmax statistics. The TPU kernel holds a whole (256, T) row block
-//   of scores in fast memory and takes a plain softmax. Here scores exist
-//   one 32 x 64 tile at a time, so each row's log-sum-exp comes from the
-//   forward kernel (global_attention.cu writes it when a gradient will be
-//   asked for) and P = exp(s - lse) is exact per tile, with no second pass.
-// * Who sums what. dq is a sum over keys and belongs to a block of query
-//   rows; dk and dv are sums over queries and belong to a block of keys.
-//   The TPU kernel keeps dk and dv resident across consecutive grid steps,
-//   which a CUDA grid cannot do. So there are two kernels, each recomputing
-//   the S and dP tiles it needs (seven tile products for the five of the
-//   formulas):
-//     - the dq kernel: one block owns (head, 32 query rows) and walks the
-//       keys in tiles of 64; it loops over the images inside the block, so
-//       it also owns its rows of dbias and sums them over the batch with
-//       plain read-add-write by the thread that wrote them (no atomics, no
-//       second recompute pass as on the TPU). Its prologue computes delta
-//       from g and out and leaves it in device memory for the other kernel.
-//     - the dk/dv kernel: one block owns (image, head, 32 keys) and walks
-//       the queries in tiles of 64. It computes the transposed tiles
-//       S^T = K_own Q_tile^T and dP^T = V_own g_tile^T with the same
-//       register tiling, so that its own keys are its rows and dk, dv
-//       accumulate in registers as the forward's output does. The price is
-//       that its bias reads run down a column (32 consecutive keys of 64
-//       rows); the block uses every byte of each sector it touches, so the
-//       device-memory traffic is that of one pass.
-// * dbias is the traffic. At beitl16_512 one call reads 67 MB of bias twice
-//   (once per kernel) and writes 67 MB of dbias against 15 MB for q, k, v,
-//   g, dq, dk, dv. dS is written in the pass that needs it for dq.
-// * T = 1025 and 577: no padded copies. Last tiles are bounds-checked; a
-//   dead key or query row has weight exactly 0; bias and dbias rows are
-//   never 16-byte aligned and go by scalar loads and stores, 16 consecutive
-//   elements per half-warp.
+// Two routes, by dtype.
 //
-// What bounds it: with a bias, device memory (bias in, dbias out); without,
-// the products. On CUDA cores from shared memory it is far from either;
-// wgmma and TMA are a later change.
+// bf16: the tensor cores (global_attention_bwd_dq_wgmma and
+// global_attention_bwd_dkv_wgmma below, with attention_wgmma.cuh). Each CTA
+// has consumer warpgroups of 64 rows (one in the dq kernel, two in the
+// dk/dv kernel) and one producer warp that loads their own rows once by
+// TMA and keeps a ring of the other side's tiles full (32 keys of K and V
+// for the dq kernel; 32 queries of q and g, with their lse and delta, for
+// the dk/dv kernel). All five products run on wgmma: S and dP with both
+// operands K-major from shared memory; dq += dS K, dV += P^T g and dK +=
+// dS^T q with the weights rounded to bf16 straight from the sums'
+// registers as the A operand and K, g, q as MN-major B. At batch 2 the dq
+// kernel holds both images' dq in registers, so each bias tile is read
+// once and each dbias tile written once for the pair, through a tile in
+// shared memory so that a warp stores whole rows. The bias is loaded into
+// the sums' layout a tile ahead of its use.
+//
+// f32: CUDA cores (the two kernels below the helpers), kept for the f32
+// bound (3e-5), which needs f32 products: one block of 128 threads owns
+// 32 query rows (dq) or 32 keys (dk/dv) and walks the other side in tiles
+// of 64 with 4 x 4 register tiles from shared memory; P stays f32 in all
+// five products, as in the Pallas kernel.
+//
+// T = 1025 and 577: no padded copies. Last tiles are masked; a dead key or
+// query row has weight exactly 0; bias and dbias rows are never 16-byte
+// aligned and go by scalar loads and stores.
+//
+// What bounds it: with a bias, device memory: at beitl16_512 one call reads
+// 67 MB of f32 bias (once in each kernel) and writes 67 MB of dbias against
+// 15 MB for q, k, v, g, dq, dk, dv. Without a bias, the products.
 
+#include "attention_wgmma.cuh"
 #include "global_attention_common.cuh"
 
 namespace {
@@ -368,31 +378,529 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, const v
 
 }  // namespace
 
+// --- the bf16 route: wgmma fed by TMA ------------------------------------------
+
+namespace wgattn {
+
+constexpr int BWD_STAGES = 2;  // key (or query) tiles in flight: one loads while one is multiplied
+constexpr int STATS_BYTES = 1024;  // lse and delta of a query tile, room kept to the swizzle atom
+
+// Keys a tile of the dq kernel and queries a tile of the dk/dv kernel: 32.
+// Measured on the card (PERF.md §6): dq tiles of 64 and of 16 were
+// slower; a dk/dv CTA of two warpgroups fits its 168 registers a thread
+// only at 32 queries (at 64 it spilled), and beat one warpgroup with tiles
+// of 64, and tiles of 16. kernels/global_attention.py restates these.
+constexpr int DQ_KT = 32, DKV_QT = 32, DKV_NWG = 2;
+
+// Q and g of IMG images (64 rows each), the ring of K and V tiles of IMG
+// images, two dbias tiles (64 rows of KT + 1 floats), barriers (qg_full,
+// qg_empty, full[STAGES], empty[STAGES])
+__host__ __device__ constexpr int dq_smem_bytes(int D, int img) {
+  return 1024 + (img * 2 * 64 + BWD_STAGES * img * 2 * DQ_KT) * padded(D) * 2 +
+         2 * 64 * (DQ_KT + 1) * 4 + (2 + 2 * BWD_STAGES) * 8;
+}
+// this CTA's K and V (64 rows a warpgroup each), the ring of q and g tiles
+// with their rows' statistics, barriers (kv_full, full[STAGES], empty[STAGES])
+__host__ __device__ constexpr int dkv_smem_bytes(int D) {
+  return 1024 + 2 * DKV_NWG * 64 * padded(D) * 2 +
+         BWD_STAGES * (2 * DKV_QT * padded(D) * 2 + STATS_BYTES) + (1 + 2 * BWD_STAGES) * 8;
+}
+
+struct BwdParams {
+  const void* bias;  // (H, T, T) f32 or bf16, or null
+  const __nv_bfloat16* g;    // (B, H, T, D) contiguous: the output's cotangent
+  const __nv_bfloat16* out;  // (B, H, T, D) contiguous: the forward's output
+  const float* lse;          // (B, H, T) from the forward
+  float* delta;              // (B, H, T): written by the dq kernel, read by the dk/dv kernel
+  __nv_bfloat16 *dq, *dk, *dv;  // (B, H, T, D) contiguous
+  float* dbias;                 // (H, T, T), or null
+  int bias_kind, B, H, T;
+  float scale, scale_log2;
+};
+
+// dq, dbias and delta. One CTA: one consumer warpgroup owns 64 query rows
+// of one head for every image, IMG images at a time, and one producer warp
+// whose lane 0 loads their Q and g rows and keeps a ring of their K and V
+// tiles full. Per key tile and image: S = Q K^T and dP = g V^T (A and B
+// K-major), dS = P (dP - delta) in registers, dq += dS K (dS as bf16
+// fragments, K as an MN-major B). The dS of the IMG images are summed in
+// registers and written to dbias once, through a tile in shared memory so
+// that each warp stores whole rows; a later group of images (B > IMG) adds
+// to what the same thread wrote.
+template <int D, int IMG>
+__global__ void __launch_bounds__(128 + PRODUCER_THREADS, 2)
+    global_attention_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+                                  const __grid_constant__ CUtensorMap kmap,
+                                  const __grid_constant__ CUtensorMap vmap,
+                                  const __grid_constant__ CUtensorMap gmap, const BwdParams p) {
+  constexpr int DP = padded(D), KT = DQ_KT, STAGES = BWD_STAGES;
+  constexpr int TILE = 64 * DP * 2, KV_TILE = KT * DP * 2, STAGE_BYTES = IMG * 2 * KV_TILE;
+
+  extern __shared__ unsigned char smem_raw_dq[];
+  const uint32_t raw = smem_u32(smem_raw_dq);
+  const uint32_t qg = (raw + 1023u) & ~1023u;  // image i: Q at qg + 2 i TILE, g after it
+  const uint32_t ring = qg + IMG * 2 * TILE;    // stage s, image i: K, then V
+  const uint32_t dbias_tiles = ring + STAGES * STAGE_BYTES;  // two of 64 x (KT + 1) floats
+  const uint32_t qg_full = dbias_tiles + 2 * 64 * (KT + 1) * 4, qg_empty = qg_full + 8;
+  const uint32_t full = qg_empty + 8, empty = full + 8 * STAGES;  // + 8 s
+  const int tid = threadIdx.x, T = p.T, H = p.H;
+  const int q0 = blockIdx.x * 64, h = blockIdx.y;
+  const int ntiles = (T + KT - 1) / KT;
+
+  if (tid == 0) {
+    mbar_init(qg_full, 1);
+    mbar_init(qg_empty, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 1);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    if (tid == 128) {
+      prefetch_map(&qmap);
+      prefetch_map(&kmap);
+      prefetch_map(&vmap);
+      prefetch_map(&gmap);
+      int s = 0;
+      uint32_t ph = 0, gph = 0;
+      for (int g0 = 0; g0 < p.B; g0 += IMG, gph ^= 1) {
+        const int nb = min(IMG, p.B - g0);
+        mbar_wait(qg_empty, gph ^ 1);
+        mbar_expect_tx(qg_full, nb * 2 * TILE);
+        for (int i = 0; i < nb; ++i) {
+          load_rows<DP>(qg + 2 * i * TILE, &qmap, qg_full, 64, q0, h, g0 + i);
+          load_rows<DP>(qg + 2 * i * TILE + TILE, &gmap, qg_full, 64, q0, h, g0 + i);
+        }
+        for (int j = 0; j < ntiles; ++j) {
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          const uint32_t st = ring + s * STAGE_BYTES;
+          mbar_expect_tx(full + 8 * s, nb * 2 * KV_TILE);
+          for (int i = 0; i < nb; ++i) {
+            load_rows<DP>(st + 2 * i * KV_TILE, &kmap, full + 8 * s, KT, j * KT, h, g0 + i);
+            load_rows<DP>(st + (2 * i + 1) * KV_TILE, &vmap, full + 8 * s, KT, j * KT, h, g0 + i);
+          }
+          if (++s == STAGES) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // this thread's rows: `row` and `row` + 8 (trow in the CTA's tile)
+  const int warp = tid / 32, lane = tid % 32;
+  const int trow = warp * 16 + lane / 4, row = q0 + trow;
+  float bb[KT / 2];
+  bias_fragment<KT, false>(bb, p.bias, p.bias_kind, h, T, row, 0, lane);
+  int s = 0;
+  uint32_t ph = 0, gph = 0;
+  for (int g0 = 0; g0 < p.B; g0 += IMG, gph ^= 1) {
+    const int nb = min(IMG, p.B - g0);
+
+    // delta = rowsum(g * out) (a quarter row a lane, summed over the quad)
+    // and the rows' log-sum-exp in log2 units
+    float dl[IMG][2], ls[IMG][2];
+#pragma unroll
+    for (int i = 0; i < IMG; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = row + 8 * hh;
+        const size_t at = ((size_t)(g0 + i) * H + h) * T + r;
+        float part = 0.f;
+        if (i < nb && r < T) {
+          const __nv_bfloat162* gr = reinterpret_cast<const __nv_bfloat162*>(p.g + at * D);
+          const __nv_bfloat162* orow = reinterpret_cast<const __nv_bfloat162*>(p.out + at * D);
+#pragma unroll
+          for (int c = 0; c < D / 8; ++c) {
+            const int at2 = (lane % 4) * (D / 8) + c;
+            const float2 x = __bfloat1622float2(gr[at2]), y = __bfloat1622float2(orow[at2]);
+            part = fmaf(x.x, y.x, fmaf(x.y, y.y, part));
+          }
+        }
+        dl[i][hh] = quad_sum(part);
+        ls[i][hh] = (i < nb && r < T) ? p.lse[at] * LOG2E : 0.f;
+        if (i < nb && r < T && lane % 4 == 0) p.delta[at] = dl[i][hh];
+      }
+
+    float dq[IMG][DP / 2];
+#pragma unroll
+    for (int i = 0; i < IMG; ++i)
+#pragma unroll
+      for (int e = 0; e < DP / 2; ++e) dq[i][e] = 0.f;
+    mbar_wait(qg_full, gph);
+
+    for (int j = 0; j < ntiles; ++j) {
+      mbar_wait(full + 8 * s, ph);
+      const uint32_t st = ring + s * STAGE_BYTES;
+      float dbs[KT / 2];
+#pragma unroll
+      for (int i = 0; i < IMG; ++i) {
+        if (i >= nb) break;
+        const uint32_t qa = qg + 2 * i * TILE, ga = qa + TILE;
+        const uint32_t kt = st + 2 * i * KV_TILE, vt = kt + KV_TILE;
+        float sc[KT / 2], dp[KT / 2];
+#pragma unroll
+        for (int e = 0; e < KT / 2; ++e) sc[e] = dp[e] = 0.f;
+        fence_sums(sc);
+        fence_sums(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          Wgmma<KT>::template ss<0>(sc, kmajor<64>(qa, kk), kmajor<KT>(kt, kk));
+          Wgmma<KT>::template ss<0>(dp, kmajor<64>(ga, kk), kmajor<KT>(vt, kk));
+        }
+        wgmma_commit();
+        fence_sums(sc);
+        fence_sums(dp);
+        wgmma_wait<0>();
+        fence_sums(sc);
+        fence_sums(dp);
+
+        // P from the forward's log-sum-exp; a dead row or key weighs 0
+#pragma unroll
+        for (int e = 0; e < KT / 2; ++e) {
+          const int hh = (e & 2) ? 1 : 0;
+          const bool live = row + 8 * hh < T && j * KT + frag_col(e, lane) < T;
+          const float pr =
+              live ? exp2f(fmaf(sc[e], p.scale_log2, fmaf(bb[e], LOG2E, -ls[i][hh]))) : 0.f;
+          const float ds = pr * (dp[e] - dl[i][hh]);
+          dbs[e] = i == 0 ? ds : dbs[e] + ds;
+          dp[e] = ds;
+        }
+        if (i == nb - 1 && (j + 1 < ntiles || g0 + IMG < p.B))
+          bias_fragment<KT, false>(bb, p.bias, p.bias_kind, h, T, row,
+                                   j + 1 < ntiles ? (j + 1) * KT : 0, lane);
+
+        // dq += dS K: dS rounded to bf16 as the A operand, K rows MN-major
+        uint32_t fa[KT / 16][4];
+        to_fragments<KT>(dp, fa);
+        fence_regs(fa);
+        fence_sums(dq[i]);
+        wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < KT / 16; ++t) Wgmma<DP>::rs(dq[i], fa[t], mnmajor<KT>(kt, t));
+        wgmma_commit();
+        fence_sums(dq[i]);
+        wgmma_wait<0>();
+        fence_sums(dq[i]);
+      }
+      if (tid == 0) mbar_arrive(empty + 8 * s);
+      if (++s == STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+
+      // dbias from the f32 dS, summed over the images: the sums go to one
+      // of two tiles in shared memory (the other may still be read), then
+      // each warp stores 16 whole rows of it. The same thread owns the same
+      // elements for every group of images: no atomics
+      if (p.dbias != nullptr) {
+        constexpr int PITCH = KT + 1;
+        float* tile = reinterpret_cast<float*>(smem_raw_dq + (dbias_tiles - raw)) +
+                      (j & 1) * 64 * PITCH;
+#pragma unroll
+        for (int e = 0; e < KT / 2; ++e)
+          tile[(trow + frag_row(e)) * PITCH + frag_col(e, lane)] = dbs[e];
+        named_sync(1, 128);
+        for (int r = warp * 16; r < warp * 16 + 16 && q0 + r < T; ++r) {
+          float* out_row = p.dbias + ((size_t)h * T + q0 + r) * T + j * KT;
+#pragma unroll
+          for (int c = lane; c < KT; c += 32)
+            if (j * KT + c < T)
+              out_row[c] = g0 == 0 ? tile[r * PITCH + c] : out_row[c] + tile[r * PITCH + c];
+        }
+      }
+    }
+    if (tid == 0) mbar_arrive(qg_empty);
+#pragma unroll
+    for (int i = 0; i < IMG; ++i)
+      if (i < nb)
+        store_rows<D, DP>(p.dq + ((size_t)(g0 + i) * H + h) * T * D, dq[i], row, T, lane,
+                          p.scale, p.scale);
+  }
+}
+
+// dk and dv. One CTA: two consumer warpgroups own 64 keys each of one
+// (image, head) and walk the queries in tiles of 32; one producer warp loads this
+// CTA's K and V rows once and keeps a ring of q and g tiles full, its lanes
+// writing each tile's lse and delta beside it. The products are transposed,
+// so that the CTA's keys are the rows of the sums: S^T = K q^T, dP^T = V
+// g^T (A and B K-major), then dV += P^T g and dK += dS^T q (P^T and dS^T as
+// bf16 fragments, q and g as MN-major B). The bias under S^T is read down
+// its columns: a quad's loads cover 8 consecutive keys of one query row.
+template <int D>
+__global__ void __launch_bounds__(DKV_NWG * 128 + PRODUCER_THREADS, 1)
+    global_attention_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
+                                   const __grid_constant__ CUtensorMap kmap,
+                                   const __grid_constant__ CUtensorMap vmap,
+                                   const __grid_constant__ CUtensorMap gmap, const BwdParams p) {
+  constexpr int DP = padded(D), QT = DKV_QT, STAGES = BWD_STAGES, NWG = DKV_NWG;
+  constexpr int OWN = NWG * 64 * DP * 2, Q_TILE = QT * DP * 2, CONSUMERS = NWG * 128;
+  constexpr int STAGE_BYTES = 2 * Q_TILE + STATS_BYTES;
+  static_assert(2 * QT * 4 <= STATS_BYTES, "a tile's statistics fit their room");
+
+  extern __shared__ unsigned char smem_raw_dkv[];
+  const uint32_t raw = smem_u32(smem_raw_dkv);
+  const uint32_t kown = (raw + 1023u) & ~1023u, vown = kown + OWN;
+  const uint32_t ring = vown + OWN;  // stage s: q, g, then lse and delta (f32, log2 units for lse)
+  const uint32_t kv_full = ring + STAGES * STAGE_BYTES;
+  const uint32_t full = kv_full + 8, empty = full + 8 * STAGES;  // + 8 s
+  const int tid = threadIdx.x, T = p.T;
+  const int b = blockIdx.x, k0 = blockIdx.y * NWG * 64, h = blockIdx.z;
+  const size_t bh = (size_t)b * p.H + h;
+  const int ntiles = (T + QT - 1) / QT;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1 + PRODUCER_THREADS);  // the expect_tx, then every lane's stores
+      mbar_init(empty + 8 * s, NWG);                  // one arrival a warpgroup
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    const int lane = tid - CONSUMERS;
+    if (lane == 0) {
+      prefetch_map(&qmap);
+      prefetch_map(&kmap);
+      prefetch_map(&vmap);
+      prefetch_map(&gmap);
+      mbar_expect_tx(kv_full, 2 * OWN);
+      load_rows<DP>(kown, &kmap, kv_full, NWG * 64, k0, h, b);
+      load_rows<DP>(vown, &vmap, kv_full, NWG * 64, k0, h, b);
+    }
+    int s = 0;
+    uint32_t ph = 0;
+    for (int i = 0; i < ntiles; ++i) {
+      mbar_wait(empty + 8 * s, ph ^ 1);
+      const uint32_t st = ring + s * STAGE_BYTES;
+      if (lane == 0) {
+        mbar_expect_tx(full + 8 * s, 2 * Q_TILE);
+        load_rows<DP>(st, &qmap, full + 8 * s, QT, i * QT, h, b);
+        load_rows<DP>(st + Q_TILE, &gmap, full + 8 * s, QT, i * QT, h, b);
+      }
+      float* stats = reinterpret_cast<float*>(smem_raw_dkv + (st + 2 * Q_TILE - raw));
+      for (int c = lane; c < QT; c += PRODUCER_THREADS) {
+        const int qi = i * QT + c;
+        stats[c] = qi < T ? p.lse[bh * T + qi] * LOG2E : 0.f;
+        stats[QT + c] = qi < T ? p.delta[bh * T + qi] : 0.f;
+      }
+      mbar_arrive(full + 8 * s);
+      if (++s == STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    return;
+  }
+
+  // warpgroup wg owns keys k0 + 64 wg .. + 63; this thread `key` and `key` + 8
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int key = k0 + wg * 64 + warp * 16 + lane / 4;
+  const uint32_t ka = kown + wg * 64 * ROW_BYTES, va = vown + wg * 64 * ROW_BYTES;
+  float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+  for (int e = 0; e < DP / 2; ++e) dk[e] = dv[e] = 0.f;
+  float bb[QT / 2];
+  bias_fragment<QT, true>(bb, p.bias, p.bias_kind, h, T, key, 0, lane);
+  mbar_wait(kv_full, 0);
+
+  int s = 0;
+  uint32_t ph = 0;
+  for (int i = 0; i < ntiles; ++i) {
+    mbar_wait(full + 8 * s, ph);
+    const uint32_t qt = ring + s * STAGE_BYTES, gt = qt + Q_TILE;
+    const float* stats = reinterpret_cast<const float*>(smem_raw_dkv + (qt + 2 * Q_TILE - raw));
+    float sc[QT / 2], dp[QT / 2];
+#pragma unroll
+    for (int e = 0; e < QT / 2; ++e) sc[e] = dp[e] = 0.f;
+    fence_sums(sc);
+    fence_sums(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<QT>::template ss<0>(sc, kmajor<NWG * 64>(ka, kk), kmajor<QT>(qt, kk));
+      Wgmma<QT>::template ss<0>(dp, kmajor<NWG * 64>(va, kk), kmajor<QT>(gt, kk));
+    }
+    wgmma_commit();
+    fence_sums(sc);
+    fence_sums(dp);
+    wgmma_wait<0>();
+    fence_sums(sc);
+    fence_sums(dp);
+
+#pragma unroll
+    for (int e = 0; e < QT / 2; ++e) {
+      const bool live = key + frag_row(e) < T && i * QT + frag_col(e, lane) < T;
+      sc[e] = live ? exp2f(fmaf(sc[e], p.scale_log2, fmaf(bb[e], LOG2E, -stats[frag_col(e, lane)])))
+                   : 0.f;
+    }
+    if (i + 1 < ntiles) bias_fragment<QT, true>(bb, p.bias, p.bias_kind, h, T, key, (i + 1) * QT, lane);
+
+    // dV += P^T g (P^T rounded to bf16 as the A operand) runs while dS^T is
+    // computed; then dK += dS^T q
+    uint32_t pa[QT / 16][4], sa[QT / 16][4];
+    to_fragments<QT>(sc, pa);
+    fence_regs(pa);
+    fence_sums(dv);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < QT / 16; ++t) Wgmma<DP>::rs(dv, pa[t], mnmajor<QT>(gt, t));
+    wgmma_commit();
+#pragma unroll
+    for (int e = 0; e < QT / 2; ++e) dp[e] = sc[e] * (dp[e] - stats[QT + frag_col(e, lane)]);
+    to_fragments<QT>(dp, sa);
+    fence_regs(sa);
+    fence_sums(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < QT / 16; ++t) Wgmma<DP>::rs(dk, sa[t], mnmajor<QT>(qt, t));
+    wgmma_commit();
+    fence_sums(dv);
+    fence_sums(dk);
+    wgmma_wait<0>();
+    fence_sums(dv);
+    fence_sums(dk);
+    if (tid % 128 == 0) mbar_arrive(empty + 8 * s);
+    if (++s == STAGES) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+  store_rows<D, DP>(p.dk + bh * T * D, dk, key, T, lane, p.scale, p.scale);
+  store_rows<D, DP>(p.dv + bh * T * D, dv, key, T, lane, 1.f, 1.f);
+}
+
+template <int D, int IMG>
+int launch_dq(const long long* geom, const void* q, const void* k, const void* v, const void* g,
+              const BwdParams& p, cudaStream_t stream) {
+  constexpr int KT = DQ_KT, smem = dq_smem_bytes(D, IMG);
+  static_assert(smem <= MAX_SMEM_BYTES, "the tiles and rings must fit a block's shared memory");
+  // q and g in boxes of 64 rows, k and v of KT
+  CUtensorMap qm, km, vm, gm;
+  int err = make_map(&qm, q, geom, 64);
+  if (!err) err = make_map(&km, k, geom + GEOM, KT);
+  if (!err) err = make_map(&vm, v, geom + 2 * GEOM, KT);
+  if (!err) err = make_map(&gm, g, geom + 3 * GEOM, 64);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(global_attention_bwd_dq_wgmma<D, IMG>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  global_attention_bwd_dq_wgmma<D, IMG>
+      <<<dim3((unsigned)((p.T + 63) / 64), (unsigned)p.H), 128 + PRODUCER_THREADS, smem, stream>>>(
+          qm, km, vm, gm, p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv(const long long* geom, const void* q, const void* k, const void* v, const void* g,
+               const BwdParams& p, cudaStream_t stream) {
+  constexpr int smem = dkv_smem_bytes(D);
+  static_assert(smem <= MAX_SMEM_BYTES, "the tiles and rings must fit a block's shared memory");
+  // k and v in boxes of 128 rows (two warpgroups' keys), q and g of 32
+  CUtensorMap qm, km, vm, gm;
+  int err = make_map(&qm, q, geom, DKV_QT);
+  if (!err) err = make_map(&km, k, geom + GEOM, DKV_NWG * 64);
+  if (!err) err = make_map(&vm, v, geom + 2 * GEOM, DKV_NWG * 64);
+  if (!err) err = make_map(&gm, g, geom + 3 * GEOM, DKV_QT);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(global_attention_bwd_dkv_wgmma<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  // the image index varies fastest, so CTAs that share a bias tile run together
+  const dim3 grid((unsigned)p.B, (unsigned)((p.T + DKV_NWG * 64 - 1) / (DKV_NWG * 64)),
+                  (unsigned)p.H);
+  global_attention_bwd_dkv_wgmma<D>
+      <<<grid, DKV_NWG * 128 + PRODUCER_THREADS, smem, stream>>>(qm, km, vm, gm, p);
+  return (int)cudaGetLastError();
+}
+
+// delta is written by the dq kernel and read by the dk/dv kernel: stream order
+template <int D>
+int launch_bwd(int img, const long long* geom, const void* q, const void* k, const void* v,
+               const void* g, const BwdParams& p, cudaStream_t stream) {
+  int err = (int)cudaErrorInvalidValue;
+  if (img == 1) err = launch_dq<D, 1>(geom, q, k, v, g, p, stream);
+  if constexpr (D <= 64) {
+    if (img == 2) err = launch_dq<D, 2>(geom, q, k, v, g, p, stream);
+  }
+  return err ? err : launch_dkv<D>(geom, q, k, v, g, p, stream);
+}
+
+}  // namespace wgattn
+
 extern "C" {
 
-const char* soccdpt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+const char* soccdpt_error_string(int code) { return hopper::error_string(code); }
 
-// q, k, v, g, out, dq, dk, dv: (B, H, n, D) contiguous, 16-byte aligned, f32
-// or bf16 (is_bf16); bias: (H, n, n) contiguous, NULL (bias_kind 0), f32 (1)
-// or bf16 (2); lse: (B, H, n) f32 from the forward; delta: (B, H, n) f32
-// scratch; dbias: (H, n, n) f32, or NULL when the bias needs no gradient.
-int soccdpt_global_attention_bwd(const void* q, const void* k, const void* v, const void* g,
-                                 const void* out, const void* bias, const void* lse,
-                                 void* delta, void* dq, void* dk, void* dv, void* dbias, int B,
-                                 int H, int n, int D, int is_bf16, int bias_kind, float scale,
-                                 void* stream) {
+// The f32 route, on CUDA cores: q, k, v, g, out, dq, dk, dv (B, H, n, D)
+// f32 contiguous, 16-byte aligned; bias: (H, n, n) contiguous, NULL
+// (bias_kind 0), f32 (1) or bf16 (2); lse: (B, H, n) f32 from the forward;
+// delta: (B, H, n) f32 scratch; dbias: (H, n, n) f32, or NULL when the bias
+// needs no gradient.
+int soccdpt_global_attention_bwd_f32(const void* q, const void* k, const void* v, const void* g,
+                                     const void* out, const void* bias, const void* lse,
+                                     void* delta, void* dq, void* dk, void* dv, void* dbias,
+                                     int B, int H, int n, int D, int bias_kind, float scale,
+                                     void* stream) {
   if (B == 0 || H == 0 || n == 0) return (int)cudaGetLastError();
   if (bias_kind < 0 || bias_kind > 2 || (bias_kind != 0 && bias == nullptr))
     return (int)cudaErrorInvalidValue;
   if (bias_kind == 0 && dbias != nullptr) return (int)cudaErrorInvalidValue;
   if (H > 65535 || (n + BQ - 1) / BQ > 65535) return (int)cudaErrorInvalidValue;
+  return (int)dispatch<float>(D, q, k, v, g, out, bias, bias_kind, (const float*)lse,
+                              (float*)delta, dq, dk, dv, (float*)dbias, B, H, n, scale,
+                              (cudaStream_t)stream);
+}
+
+// The bf16 route: q, k, v, g bf16 views (B, H, n, D) read through tensor
+// maps of geometry geom[7 i .. 7 i + 6] (dims D, n, H, B; byte strides of
+// n, H, B) for q, k, v, g in turn, each base and stride a multiple of 16
+// bytes; g and out (B, H, n, D) bf16 contiguous as well (the dq kernel
+// reads both rows for delta); dq, dk, dv (B, H, n, D) bf16 contiguous;
+// bias, lse, delta, dbias as above; img: images whose dq the dq kernel
+// holds at once, 1 or 2 (2 only for D <= 64).
+int soccdpt_global_attention_bwd_bf16(const void* q, const void* k, const void* v, const void* g,
+                                      const long long* geom, const void* out, const void* bias,
+                                      const void* lse, void* delta, void* dq, void* dk, void* dv,
+                                      void* dbias, int B, int H, int n, int D, int bias_kind,
+                                      float scale, int img, void* stream) {
+  if (B == 0 || H == 0 || n == 0) return (int)cudaGetLastError();
+  if (bias_kind < 0 || bias_kind > 2 || (bias_kind != 0 && bias == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (bias_kind == 0 && dbias != nullptr) return (int)cudaErrorInvalidValue;
+  if (B > 65535 || H > 65535 || (n + 63) / 64 > 65535) return (int)cudaErrorInvalidValue;
+  wgattn::BwdParams p;
+  p.bias = bias;
+  p.g = (const __nv_bfloat16*)g;
+  p.out = (const __nv_bfloat16*)out;
+  p.lse = (const float*)lse;
+  p.delta = (float*)delta;
+  p.dq = (__nv_bfloat16*)dq;
+  p.dk = (__nv_bfloat16*)dk;
+  p.dv = (__nv_bfloat16*)dv;
+  p.dbias = (float*)dbias;
+  p.bias_kind = bias_kind;
+  p.B = B;
+  p.H = H;
+  p.T = n;
+  p.scale = scale;
+  p.scale_log2 = scale * wgattn::LOG2E;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = is_bf16
-      ? dispatch<__nv_bfloat16>(D, q, k, v, g, out, bias, bias_kind, (const float*)lse,
-                                (float*)delta, dq, dk, dv, (float*)dbias, B, H, n, scale, s)
-      : dispatch<float>(D, q, k, v, g, out, bias, bias_kind, (const float*)lse, (float*)delta,
-                        dq, dk, dv, (float*)dbias, B, H, n, scale, s);
-  return (int)err;
+  switch (D) {
+    case 16: return wgattn::launch_bwd<16>(img, geom, q, k, v, g, p, s);
+    case 32: return wgattn::launch_bwd<32>(img, geom, q, k, v, g, p, s);
+    case 64: return wgattn::launch_bwd<64>(img, geom, q, k, v, g, p, s);
+    case 128: return wgattn::launch_bwd<128>(img, geom, q, k, v, g, p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

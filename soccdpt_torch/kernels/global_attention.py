@@ -9,6 +9,13 @@ launches (``_flash_bwd_kernel``, ``_flash_dbias_kernel``); the function
 to match is the VJP of ``xla_reference``. The CUDA sources are
 ``csrc/global_attention.cu`` and ``csrc/global_attention_bwd.cu``.
 
+Two routes, by dtype. bf16 runs on the tensor cores: ``wgmma`` fed by TMA
+(``csrc/attention_wgmma.cuh``), q, k, v and g read through 4-D tensor maps
+of the caller's strides (``tma_geometry``; the q, k, v views of one qkv
+tensor are read in place), the launches planned by ``plan_attention``. f32
+runs the CUDA-core kernels, whose f32 products the f32 bounds need. A
+shape the bf16 route cannot take raises; nothing falls back.
+
 Contract: ``out = softmax(scale * q k^T + bias[h]) v`` over
 ``(B, H, T, d)``, with ``bias`` ``(H, T, T)`` or ``None``. q, k and v are
 bf16 or f32; the bias is f32 or bf16 and is read in its own type; scores,
@@ -31,22 +38,27 @@ by the order of the f32 sums only (2e-5).
 
 Rounding, backward. In bf16 the forward multiplies the probabilities
 rounded to bf16 by v, and the exact VJP of that (the JAX package's
-``SOCCDPT_FLASH_BWD=xla``) uses the rounded ones in ``dv``. The port
-follows the JAX package's Pallas kernel instead: K7 and
-``global_attention_backward_plain`` keep P in f32 in all five products
-and round once, at the outputs. The two differ by 2^-9 of each weight;
-the bf16 tolerance (atol = rtol = 2e-2, the forward's) covers that and
-the rounding of dq, dk and dv themselves. K7 takes each row's
-log-sum-exp from K6, which writes it only when a gradient will be asked
-for, and ``delta = rowsum(g * out)`` from the saved output; in f32 it
-differs from the plain version by the order of the sums (3e-5, the bound
-tests/test_global_attention.py holds the Pallas backward to). It uses no
-atomics, so it gives the same bits on every run.
+``SOCCDPT_FLASH_BWD=xla``) uses the rounded ones in ``dv``. K7's bf16 route
+runs its five products on the tensor cores, whose operands are bf16, so it
+rounds P (in ``dv = P^T g``) and dS (in ``dq = dS k`` and ``dk = dS^T q``)
+to bf16 as operands, as FlashAttention does; the sums stay f32 and dbias
+is written from the f32 dS, unrounded. ``global_attention_backward_plain``
+keeps P and dS in f32 in all five products, as the Pallas kernel does, and
+the f32 route (CUDA cores) matches it to the order of the sums (3e-5, the
+bound tests/test_global_attention.py holds the Pallas backward to). A bf16
+operand is off by 2^-9 of itself, so each bf16 output is off by at most
+2^-9 of the sum of its terms' sizes, besides its own rounding: the bf16
+tolerance (atol = rtol = 2e-2, the forward's) covers both. K7 takes each
+row's log-sum-exp from K6, which writes it only when a gradient will be
+asked for, and ``delta = rowsum(g * out)`` from the saved output. It uses
+no atomics, so it gives the same bits on every run.
 
 Bound on the H100: with a bias, device memory. One bf16 batch-1 forward
 of ``beitl16_512`` (24 calls, T = 1025, 16 heads of d = 64) moves 24 x
 (8.4 MB of q/k/v/out + 67.2 MB of f32 bias); its backward 24 x (14.7 MB
-of q/k/v/g/dq/dk/dv + 67.2 MB of bias + 67.2 MB of dbias). Without a
+of q/k/v/g/dq/dk/dv + 67.2 MB of bias + 67.2 MB of dbias). The bias
+cannot go through TMA (a row of T elements is no multiple of 16 bytes),
+so each thread loads the elements its sums hold, a tile ahead. Without a
 bias (plain ViT) the products bound both. The designs are described in
 the CUDA sources.
 
@@ -57,7 +69,8 @@ launches and ``global_attention_backward.launches`` K7's.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+from typing import List, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -65,6 +78,104 @@ from torch.autograd.function import once_differentiable
 from . import _build
 
 SUPPORTED_D = (16, 32, 64, 128)
+
+# The bf16 route (csrc/attention_wgmma.cuh and the two .cu files), restated
+# for the planner: keys a forward tile and its ring's stages, keys a tile
+# of the dq kernel, queries a tile and warpgroups (of 64 keys) of the dk/dv
+# kernel, the backward rings' stages, the room of a query tile's
+# statistics, a block's shared memory and the H100's streaming
+# multiprocessors. K6's CTA is one warpgroup of 64 query rows, two to an SM.
+FWD_KT, FWD_STAGES, DQ_KT, DKV_QT, DKV_NWG, BWD_STAGES, STATS_BYTES = 64, 3, 32, 32, 2, 2, 1024
+MAX_SMEM_BYTES, SMS = 232448, 132
+
+
+def padded(D: int) -> int:
+    """The head width the tiles hold: 64 columns (zeros past D), or 128."""
+    return 64 if D < 64 else D
+
+
+def fwd_smem_bytes(D: int) -> int:
+    """K6's bf16 CTA: 1 KB of alignment slack, Q (64 rows), the ring of K
+    and V tiles, the barriers."""
+    return 1024 + (64 + FWD_STAGES * 2 * FWD_KT) * padded(D) * 2 + (1 + 2 * FWD_STAGES) * 8
+
+
+def dq_smem_bytes(D: int, img: int) -> int:
+    """K7's dq CTA: Q and g of ``img`` images (64 rows), their ring of K and
+    V tiles (DQ_KT keys), two dbias tiles (64 rows of DQ_KT + 1 floats),
+    the barriers."""
+    return (1024 + (img * 2 * 64 + BWD_STAGES * img * 2 * DQ_KT) * padded(D) * 2
+            + 2 * 64 * (DQ_KT + 1) * 4 + (2 + 2 * BWD_STAGES) * 8)
+
+
+def dkv_smem_bytes(D: int) -> int:
+    """K7's dk/dv CTA: its K and V (64 rows a warpgroup), the ring of q and
+    g tiles (DKV_QT rows) with their statistics, the barriers."""
+    return (1024 + 2 * DKV_NWG * 64 * padded(D) * 2
+            + BWD_STAGES * (2 * DKV_QT * padded(D) * 2 + STATS_BYTES) + (1 + 2 * BWD_STAGES) * 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """The launches of one bf16 call: the images the dq kernel holds at
+    once (``img``), and each kernel's grid and shared memory."""
+
+    img: int
+    fwd_grid: Tuple[int, int, int]
+    dq_grid: Tuple[int, int]
+    dkv_grid: Tuple[int, int, int]
+    fwd_smem: int
+    dq_smem: int
+    dkv_smem: int
+
+
+def plan_attention(B: int, H: int, T: int, D: int, img: Optional[int] = None) -> AttentionPlan:
+    """The bf16 route's launches for (B, H, T, D). The dq kernel holds two
+    images' dq at once (``img`` = 2) where B >= 2 and D <= 64, so that each
+    bias tile is read and each dbias tile written once a pair of images;
+    ``img`` may be asked for, as chip_smoke.py does to time the other."""
+    if img is None:
+        img = 2 if B >= 2 and D <= 64 else 1
+    if img not in (1, 2) or (img == 2 and D > 64):
+        raise ValueError(f"img must be 1, or 2 at D <= 64; got {img} at D = {D}")
+    tiles = -(-T // 64)
+    plan = AttentionPlan(
+        img=img, fwd_grid=(B, tiles, H), dq_grid=(tiles, H),
+        dkv_grid=(B, -(-T // (64 * DKV_NWG)), H),
+        fwd_smem=fwd_smem_bytes(D), dq_smem=dq_smem_bytes(D, img), dkv_smem=dkv_smem_bytes(D),
+    )
+    if max(plan.fwd_smem, plan.dq_smem, plan.dkv_smem) > MAX_SMEM_BYTES:
+        raise ValueError(f"the bf16 route's tiles do not fit a block at D = {D}")
+    if H > 65535 or tiles > 65535:
+        raise ValueError(f"grid too large: H = {H}, {tiles} tiles of 64 rows")
+    return plan
+
+
+def tma_geometry(t: torch.Tensor) -> List[int]:
+    """The 4-D tensor map of a (B, H, T, D) bf16 view as the kernels take
+    it: dims (D, T, H, B) innermost first, then the byte strides of T, H
+    and B. Rows past T lie outside the map, so TMA fills them with zeros
+    and never reads the next head's rows."""
+    B, H, T, D = t.shape
+    e = t.element_size()
+    return [D, T, H, B, t.stride(2) * e, t.stride(1) * e, t.stride(0) * e]
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether TMA can read the view in place: D contiguous, the base and
+    every other stride a multiple of 16 bytes (below 2^40)."""
+    e = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(s * e % 16 == 0 and s * e < 2**40 for s in t.stride()[:3]))
+
+
+def _as_tma(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when TMA can read it (the strided q, k, v views of one
+    qkv tensor can), else an aligned contiguous copy."""
+    if tma_ready(t):
+        return t
+    t = t.contiguous()
+    return t if tma_ready(t) else t.clone()
 
 
 def global_attention_plain(
@@ -143,56 +254,83 @@ def _bias_kind(bias) -> int:
     return 1 if bias.dtype == torch.float32 else 2
 
 
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _geometry(*tensors: torch.Tensor):
+    """The tensor maps' geometry of the tensors in turn, as a C array."""
+    flat = [x for t in tensors for x in tma_geometry(t)]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
 def _launch(q, k, v, bias, scale, want_lse=False):
     """K6 on CUDA tensors: ``(out, lse, (q, k, v, bias) as the kernel read
-    them)``; ``lse`` (B, H, T) f32 only when ``want_lse``."""
+    them)``; ``lse`` (B, H, T) f32 only when ``want_lse``. bf16 runs the
+    tensor-core route, f32 the CUDA cores."""
     B, H, T, d = q.shape
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     if bias is not None:
         bias = bias.contiguous()  # in its own dtype: the kernel widens on chip
-    out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if want_lse else None
     lib = _build.load("global_attention")
-    fn = lib.soccdpt_global_attention
-    fn.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    rc = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        bias.data_ptr() if bias is not None else None, out.data_ptr(),
-        lse.data_ptr() if want_lse else None,
-        B, H, T, d, int(q.dtype == torch.bfloat16), _bias_kind(bias), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    if q.dtype == torch.bfloat16:
+        q, k, v = _as_tma(q), _as_tma(k), _as_tma(v)
+        out = torch.empty((B, H, T, d), dtype=q.dtype, device=q.device)
+        plan_attention(B, H, T, d)  # raises on what the route cannot take
+        fn = lib.soccdpt_global_attention_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _geometry(q, k, v), _ptr(bias),
+                out.data_ptr(), _ptr(lse), B, H, T, d, _bias_kind(bias), float(scale),
+                _stream(q))
+    else:
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        out = torch.empty_like(q)
+        fn = lib.soccdpt_global_attention_f32
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(lse),
+                B, H, T, d, _bias_kind(bias), float(scale), _stream(q))
     _build.check(lib, rc, "global attention kernel")
     global_attention.launches += 1
     return out, lse, (q, k, v, bias)
 
 
-def _launch_backward(q, k, v, bias, out, lse, g, scale, want_dbias):
-    """K7 on CUDA tensors (q, k, v, bias, out as K6 read and wrote them)."""
+def _launch_backward(q, k, v, bias, out, lse, g, scale, want_dbias, img=None):
+    """K7 on CUDA tensors (q, k, v, bias, out as K6 read and wrote them);
+    ``img`` overrides the planner's images a dq CTA holds (bf16)."""
     B, H, T, d = q.shape
     g = _aligned(g.to(q.dtype))
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    dq, dk, dv = (torch.empty((B, H, T, d), dtype=q.dtype, device=q.device) for _ in range(3))
     delta = torch.empty_like(lse)
     dbias = None
     if want_dbias:
         dbias = torch.empty((H, T, T), dtype=torch.float32, device=q.device)
     lib = _build.load("global_attention_bwd")
-    fn = lib.soccdpt_global_attention_bwd
-    fn.argtypes = (
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    rc = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(),
-        bias.data_ptr() if bias is not None else None, lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dbias.data_ptr() if want_dbias else None,
-        B, H, T, d, int(q.dtype == torch.bfloat16), _bias_kind(bias), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    if q.dtype == torch.bfloat16:
+        plan = plan_attention(B, H, T, d, img=img)
+        fn = lib.soccdpt_global_attention_bwd_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _geometry(q, k, v, g),
+                out.data_ptr(), _ptr(bias), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), _ptr(dbias), B, H, T, d, _bias_kind(bias),
+                float(scale), plan.img, _stream(q))
+    else:
+        fn = lib.soccdpt_global_attention_bwd_f32
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(), _ptr(bias),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                _ptr(dbias), B, H, T, d, _bias_kind(bias), float(scale), _stream(q))
     _build.check(lib, rc, "global attention backward kernel")
     global_attention_backward.launches += 1
     if want_dbias:
@@ -258,7 +396,8 @@ def global_attention_backward(
         if out is None or lse is None:
             out, lse, (q, k, v, bias) = _launch(q, k, v, bias, scale, want_lse=True)
         else:
-            q, k, v, out = _aligned(q), _aligned(k), _aligned(v), _aligned(out)
+            as_read = _as_tma if q.dtype == torch.bfloat16 else _aligned
+            q, k, v, out = as_read(q), as_read(k), as_read(v), _aligned(out)
             bias = None if bias is None else bias.contiguous()
         return _launch_backward(q, k, v, bias, out, lse.contiguous(), g, scale, want_dbias)
     if q.device.type != "cpu":

@@ -19,9 +19,10 @@ Tolerances, with their reasons:
   (kernels/global_attention.py, "Rounding");
 * K7 f32: atol = rtol = 3e-5, the bound tests/test_global_attention.py
   holds the Pallas backward to; K7 bf16: atol = rtol = 2e-2, the forward's
-  bound: dq, dk and dv are rounded to bf16 once, and K7 takes delta from
-  the bf16 output where the plain version sums dP * P in f32. No atomics:
-  two runs give the same bits;
+  bound: dq, dk and dv are rounded to bf16 once, the tensor-core route
+  rounds P and dS to bf16 as operands (2^-9 of each term), and K7 takes
+  delta from the bf16 output where the plain version sums dP * P in f32.
+  No atomics: two runs give the same bits, forward and backward;
 * the finite-difference checks of the two ``autograd.Function``s, f32:
   a directional derivative by central differences with a step of 1e-2
   against the inner product of the gradients with the direction, to 2 %
@@ -170,6 +171,10 @@ def _global_inputs(B, H, T, d, bias_dtype, dtype, dev, seed=0):
         (1, 3, 257, 64),  # one live key in the last tile
         (3, 2, 70, 128),  # d = 128
         (1, 1, 1, 16),  # a single token
+        (2, 16, 1025, 64),  # beitl16_512 at batch 2, the training step's
+        (1, 12, 704, 64),  # 11 tiles of 64 rows x 12 heads: one wave of 132 CTAs
+        (1, 12, 705, 64),  # one row more: 144 CTAs
+        (1, 2, 64, 32),  # T one key tile exactly
     ],
 )
 def test_global_attention_kernel_matches_plain(card, dtype, bias_dtype, B, H, T, d):
@@ -183,6 +188,38 @@ def test_global_attention_kernel_matches_plain(card, dtype, bias_dtype, B, H, T,
     assert global_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     np.testing.assert_allclose(got.float().cpu().numpy(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_global_attention_kernel_gives_the_same_bits_twice(card, dtype):
+    q, k, v, bias = _global_inputs(2, 16, 1025, 64, torch.float32, dtype, card)
+    first = global_attention(q, k, v, bias, 0.125)
+    assert torch.equal(first, global_attention(q, k, v, bias, 0.125))
+
+
+def _kernel_names(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.key for ev in prof.key_averages() if "global_attention" in ev.key]
+
+
+def test_bf16_calls_run_on_the_tensor_core_kernels(card):
+    """A bf16 call launches the wgmma kernels only, never the CUDA-core ones
+    (the f32 route)."""
+    q, k, v, bias = _global_inputs(2, 4, 130, 64, torch.float32, torch.bfloat16, card)
+    g = torch.ones_like(q)
+    fwd = _kernel_names(lambda: global_attention(q, k, v, bias, 0.125))
+    bwd = _kernel_names(lambda: global_attention_backward(q, k, v, bias, 0.125, g))
+    assert fwd and all("wgmma" in name for name in fwd), fwd
+    assert any("bwd_dq_wgmma" in n for n in bwd) and any("bwd_dkv_wgmma" in n for n in bwd), bwd
+    assert all("wgmma" in name for name in bwd), bwd
+    f32 = _kernel_names(lambda: global_attention(q.float(), k.float(), v.float(), bias, 0.125))
+    assert f32 and not any("wgmma" in name for name in f32), f32
 
 
 def test_global_attention_kernel_takes_strided_views(card):
@@ -202,6 +239,33 @@ def test_global_attention_kernel_takes_strided_views(card):
     got = global_attention(q, k, v, None, 0.25)
     want = global_attention_plain(q, k, v, None, 0.25)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,H,T,d", [(1, 16, 1025, 64), (2, 4, 65, 16), (2, 2, 70, 128)])
+def test_global_attention_bf16_reads_strided_views_in_place(card, B, H, T, d):
+    """The bf16 route reads q, k and v as the backbone hands them over (views
+    of one (B, T, 3, H, d) qkv tensor) through tensor maps of their strides,
+    with no copy, forward and backward."""
+    from soccdpt_torch.kernels.global_attention import _launch
+
+    rng = np.random.default_rng(6)
+    qkv = torch.from_numpy(rng.standard_normal((B, T, 3, H, d)).astype(np.float32)).to(
+        card, torch.bfloat16)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    bias = torch.from_numpy(rng.standard_normal((H, T, T)).astype(np.float32)).to(card)
+    read = _launch(q, k, v, bias, d**-0.5)[2]
+    assert [t.data_ptr() for t in read[:3]] == [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+    got = global_attention(q, k, v, bias, d**-0.5)
+    want = global_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), bias, d**-0.5)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
+    g = torch.from_numpy(rng.standard_normal((B, H, T, d)).astype(np.float32)).to(card, q.dtype)
+    got = global_attention_backward(q, k, v, bias, d**-0.5, g)
+    want = global_attention_backward_plain(q.contiguous(), k.contiguous(), v.contiguous(), bias,
+                                           d**-0.5, g)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        np.testing.assert_allclose(a.float().cpu().numpy(), w.float().cpu().numpy(),
+                                   atol=K7_BF16_TOL, rtol=K7_BF16_TOL, err_msg=name)
 
 
 def test_global_attention_kernel_rejects_what_it_does_not_take(card):
@@ -237,6 +301,8 @@ FD_STEP, FD_RTOL = 1e-2, 2e-2
         (1, 3, 257, 64),  # one live row in the last tile
         (3, 2, 70, 128),  # d = 128, three images
         (1, 1, 1, 16),  # a single token
+        (3, 2, 130, 64),  # three images: the dq kernel takes two, then one
+        (1, 12, 705, 64),  # 12 x 12 CTAs: one wave and 12 more
     ],
 )
 def test_global_attention_backward_kernel_matches_plain(card, dtype, bias_dtype, B, H, T, d):
@@ -263,6 +329,25 @@ def test_global_attention_backward_kernel_matches_plain(card, dtype, bias_dtype,
         )
     again = global_attention_backward(q, k, v, bias, scale, g)
     assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.parametrize("img", [1, 2])
+def test_global_attention_backward_bf16_takes_one_or_two_images_a_dq_cta(card, img):
+    """The dq kernel holds one image's dq at a time or two; both are right
+    and neither depends on the order CTAs run in."""
+    from soccdpt_torch.kernels.global_attention import _launch, _launch_backward
+
+    q, k, v, bias = _global_inputs(2, 16, 1025, 64, torch.float32, torch.bfloat16, card)
+    g = torch.from_numpy(
+        np.random.default_rng(3).standard_normal(q.shape).astype(np.float32)).to(card, q.dtype)
+    out, lse, (qr, kr, vr, br) = _launch(q, k, v, bias, 0.125, want_lse=True)
+    got = _launch_backward(qr, kr, vr, br, out, lse, g, 0.125, True, img=img)
+    want = global_attention_backward_plain(q, k, v, bias, 0.125, g)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        np.testing.assert_allclose(a.float().cpu().numpy(), w.float().cpu().numpy(),
+                                   atol=K7_BF16_TOL, rtol=K7_BF16_TOL, err_msg=name)
+    again = _launch_backward(qr, kr, vr, br, out, lse, g, 0.125, True, img=img)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_global_attention_backward_skips_dbias_when_the_bias_is_frozen(card):
