@@ -11,20 +11,22 @@ Phases, each of which fails the run on any error:
 2. every kernel against its plain PyTorch version on the card, at the
    shapes its served path gives it, with the stated tolerances, and timed
    by CUDA-graph replay beside its memory/compute bound and a library
-   yardstick: K1 window attention, K2 segment sum (against the grid's
-   zeros and ``index_add_``), K6 global attention, K7 its backward
-   (against SDPA's backward, replayed alone); ``cuobjdump -sass`` of the
-   K3, K4, K6 and K7 libraries must show ``HGMMA`` and ``UTMALDG``;
+   yardstick: K1 window attention (also on the strided q, k, v views and
+   the bf16 tau the Swin block hands it, one CUDA launch a call), K2
+   segment sum (against the grid's zeros and ``index_add_``), K6 global
+   attention, K7 its backward (against SDPA's backward, replayed alone);
+   ``cuobjdump -sass`` of the K1, K3, K4, K5, K6 and K7 libraries must show
+   ``HGMMA`` and ``UTMALDG``;
 3. the decoder kernels K3 (fused residual conv unit), K4 (fusion-block
    tail) and K5 (depth-head tail), standalone ops on no path of the
    system, as in the JAX package: against their plain versions at the
    flagship's and BEiT-large's decoder shapes (batch 1 and 2) and at
-   ragged ones, in f32 and bf16 (K3 and K4 run bf16 on the tensor cores); then on
+   ragged ones, in f32 and bf16 (all three run bf16 on the tensor cores); then on
    the live flagship decoder, whose modules' inputs and outputs forward
    hooks capture during one served request, each kernel held to the module
    it replaces on that module's weights (the launch counts set to 0 just
    before and read just after); the CUDA launches of one call of each op,
-   from a profile; K5's gradient; times beside the plain version, the
+   from a profile (K5 in bf16 at most three); K5's gradient; times beside the plain version, the
    served modules' own cuDNN chain and the bound; K3's launch plan against
    its neighbouring plans at both decoders' map sizes;
 4. four served configurations at full width and depth, weights from a
@@ -181,12 +183,37 @@ def k1_inputs(torch, Bw, H, N, d, nW, dtype, seed):
     return q.to(dtype), k.to(dtype), v.to(dtype), scale, bias, mask
 
 
+# the live block's operands, checked and timed: stage 0 shifted, stage 2
+K1_VIEWS = [(16, 3, 256, 32, 16), (1, 12, 256, 32, None)]
+
+
+def k1_views(torch, Bw, H, N, d, nW, seed):
+    """K1's bf16 operands as ``WindowAttentionV2`` hands them over: q, k, v
+    strided views of one (Bw, N, 3, H, d) qkv tensor (q and k normalised),
+    a bf16 tau (H, 1, 1), the f32 bias and mask."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(Bw, N, 3, H, d, device="cuda", generator=g)
+    qkv[:, :, :2] = qkv[:, :, :2] / qkv[:, :, :2].norm(dim=-1, keepdim=True)
+    q, k, v = qkv.bfloat16().permute(2, 0, 3, 1, 4)
+    _, _, _, scale, bias, mask = k1_inputs(torch, Bw, H, N, d, nW, torch.bfloat16, seed)
+    return q, k, v, scale.bfloat16(), bias, mask
+
+
+def k1_library(torch, F, q, k, v, s, b, m):
+    """SDPA on tau*q with bias+mask folded beforehand, q, k, v contiguous:
+    the library yardstick of one K1 call."""
+    qs = (q.float() * s.float()).to(q.dtype)
+    am = (b[None] if m is None else b[None] + m[:, None]).to(q.dtype)
+    k, v = k.contiguous(), v.contiguous()
+    return lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=am, scale=1.0)
+
+
 def k1_bytes_flops(Bw, H, N, d, nW, itemsize):
     nbytes = 4 * Bw * H * N * d * itemsize + H * N * N * 4 + (nW * N * N * 4 if nW else 0)
     return nbytes, 4 * Bw * H * N * N * d
 
 
-def phase_k1(torch, F, wa):
+def phase_k1(torch, F, wa, sass):
     checks, worst = [], {"float32": 0.0, "bfloat16": 0.0}
     for i, (Bw, H, N, d, _, _) in enumerate(K1_FORWARD[::2] + [K1_FORWARD[-1]]):
         for nW in (None, Bw):
@@ -205,20 +232,46 @@ def phase_k1(torch, F, wa):
                 if not err <= tol:
                     fail(f"K1 disagrees with its plain version at {Bw}x{H}x{N}x{d} {name}")
 
+    # the live block's operands: strided q, k, v views and a bf16 tau, read
+    # in place by one launch; the same bits twice
+    views, launches = [], {}
+    for i, (Bw, H, N, d, nW) in enumerate(K1_VIEWS):
+        q, k, v, s, b, m = k1_views(torch, Bw, H, N, d, nW, seed=20 + i)
+        got = wa.window_attention(q, k, v, s, b, m)
+        torch.cuda.synchronize()
+        err = float((got.float() - wa.window_attention_plain(q, k, v, s, b, m).float()).abs().max())
+        log(f"K1 {Bw}x{H}x{N}x{d} mask={nW} bf16, strided q/k/v views and a bf16 tau: "
+            f"max|err| {err:.3g} (tol {K1_BF16_ATOL})")
+        if not err <= K1_BF16_ATOL:
+            fail(f"K1 disagrees with its plain version on strided views at {Bw}x{H}x{N}x{d}")
+        if not torch.equal(got, wa.window_attention(q, k, v, s, b, m)):
+            fail(f"K1 gave other bits on a second call at {Bw}x{H}x{N}x{d}")
+        _, by_op = cuda_launches(torch, lambda: wa.window_attention(q, k, v, s, b, m))
+        ops = graph_launches(torch, lambda: wa.window_attention(q, k, v, s, b, m))
+        if ops != 1:
+            fail(f"a bf16 K1 call on the block's views made {ops} CUDA launches: {by_op}")
+        views.append({"shape": [Bw, H, N, d], "nW": nW, "max_abs_err": err,
+                      "cuda_launches_per_call": ops, "device_us_by_operation": by_op,
+                      "ms": cuda_ms(torch, lambda: wa.window_attention(q, k, v, s, b, m)),
+                      "plain_ms": cuda_ms(torch, lambda: wa.window_attention_plain(
+                          q, k, v, s, b, m)),
+                      "library_ms": cuda_ms(torch, k1_library(torch, F, q, k, v, s, b, m))})
+        launches["bfloat16, the block's views"] = ops
+        log(f"K1 time on the block's views {Bw}x{H}x{N}x{d} mask={nW}: kernel "
+            f"{views[-1]['ms']:.4f} ms, plain {views[-1]['plain_ms']:.4f} ms, sdpa "
+            f"{views[-1]['library_ms']:.4f} ms; CUDA launches a call: {ops} ({by_op})")
+    q, k, v, s, b, m = k1_inputs(torch, *K1_VIEWS[0], torch.float32, seed=0)
+    launches["float32"] = graph_launches(torch, lambda: wa.window_attention(q, k, v, s, b, m))
+
     # one batch-1 bf16 forward's 12 launches: kernel, plain, library
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0}
     per_shape = []
     for Bw, H, N, d, nW, count in K1_FORWARD:
         q, k, v, s, b, m = k1_inputs(torch, Bw, H, N, d, nW, torch.bfloat16, seed=7)
-        # library yardstick: SDPA on tau*q with bias+mask folded beforehand
-        qs = (q.float() * s).to(q.dtype)
-        am = b[None] if m is None else b[None] + m[:, None]
-        am = am.to(q.dtype)
         t = {
             "ms": cuda_ms(torch, lambda: wa.window_attention(q, k, v, s, b, m)),
             "plain_ms": cuda_ms(torch, lambda: wa.window_attention_plain(q, k, v, s, b, m)),
-            "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qs, k, v, attn_mask=am, scale=1.0)),
+            "library_ms": cuda_ms(torch, k1_library(torch, F, q, k, v, s, b, m)),
         }
         nbytes, flops = k1_bytes_flops(Bw, H, N, d, nW, 2)
         per_shape.append({"shape": [Bw, H, N, d], "nW": nW, "count": count, **t,
@@ -231,7 +284,11 @@ def phase_k1(torch, F, wa):
             f"plain {t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms")
     byte_ms = tot["bytes"] / HBM_BYTES_PER_S * 1e3
     flop_ms = tot["flops"] / PEAK_FLOPS["bfloat16"] * 1e3
-    RECORD["k1"] = {"checks": checks, "per_shape": per_shape, "forward": tot}
+    RECORD["k1"] = {"checks": checks, "views": views, "per_shape": per_shape, "forward": tot}
+    bound_ms = max(byte_ms, flop_ms)
+    log(f"K1 time, 12 launches, bf16: kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+        f"sdpa {tot['library_ms']:.4f} ms, bound {bound_ms:.4f} ms: {bound_ms / tot['ms']:.1%} of "
+        f"the roofline")
     return {
         "name": "window_attention",
         "route": "cuda",
@@ -241,9 +298,14 @@ def phase_k1(torch, F, wa):
         "max_abs_err_bf16": worst["bfloat16"],
         "tolerance": {"float32": K1_F32_ATOL, "bfloat16": K1_BF16_ATOL},
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "library_ms": tot["library_ms"],
-        "bound_ms": max(byte_ms, flop_ms),
+        "bound_ms": bound_ms,
         "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
         "timed": "the 12 launches of one bf16 batch-1 forward, summed",
+        "roofline_share": bound_ms / tot["ms"],
+        "cuda_launches_per_call": launches,
+        "tensor_cores": {"bfloat16": "wgmma fed by TMA (csrc/attention_wgmma.cuh)",
+                         "float32": "none: CUDA cores", "sass": sass["window_attention"]},
+        "strided_views": views,
     }
 
 
@@ -875,25 +937,27 @@ def plan_check(torch, weights):
 
 def tensor_core_proof(_build):
     """``HGMMA`` (wgmma in SASS) and ``UTMALDG`` (TMA loads) counted in the
-    built K3, K4, K6 and K7 libraries: their bf16 route must run on the
-    tensor cores, fed by TMA."""
+    built K1, K3, K4, K5, K6 and K7 libraries: their bf16 route must run on
+    the tensor cores, fed by TMA."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
-    for name in ("fused_rcu", "fused_fusion", "global_attention", "global_attention_bwd"):
+    for name in ("window_attention", "fused_rcu", "fused_fusion", "fused_head",
+                 "global_attention", "global_attention_bwd"):
         sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True,
                               text=True, check=True).stdout
         counts[name] = {"HGMMA": sass.count("HGMMA"), "UTMALDG": sass.count("UTMALDG")}
         if counts[name]["HGMMA"] == 0 or counts[name]["UTMALDG"] == 0:
             fail(f"the SASS of {name}'s library shows no HGMMA or no UTMALDG: {counts[name]}")
-    log(f"tensor cores in the K3, K4, K6, K7 libraries (cuobjdump -sass): {counts}")
+    log(f"tensor cores in the K1, K3-K7 libraries (cuobjdump -sass): {counts}")
     return counts
 
 
 def cuda_launches(torch, fn):
     """(device operations (kernels, memsets, copies), device µs by operation)
-    of one call of ``fn``, from a profile."""
+    of one call of ``fn``, from a profile. The kernels' own launch counts
+    come from ``graph_launches``: a profile may miss a launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -904,6 +968,28 @@ def cuda_launches(torch, fn):
         torch.cuda.synchronize()
     rows = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
     return sum(ev.count for ev in rows), {ev.key[:80]: ev.device_time_total for ev in rows}
+
+
+def graph_launches(torch, fn):
+    """CUDA launches (kernels, memsets, copies) of one call of ``fn``: the
+    nodes of a CUDA graph that captures it, as `cuGraphGetNodes` counts them."""
+    import ctypes
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if rc != 0:
+        fail(f"cuGraphGetNodes returned {rc}")
+    return n.value
 
 
 def phase_decoder(torch, F, sass):
@@ -959,8 +1045,8 @@ def phase_decoder(torch, F, sass):
             per_call[dname], by_op[dname] = {}, {}
             for name, _, args, _, _ in cases:
                 if name not in per_call[dname]:
-                    per_call[dname][name], by_op[dname][name] = cuda_launches(
-                        torch, lambda: kernels[name][0](*args))
+                    _, by_op[dname][name] = cuda_launches(torch, lambda: kernels[name][0](*args))
+                    per_call[dname][name] = graph_launches(torch, lambda: kernels[name][0](*args))
         log(f"CUDA launches of one call, live decoder, {dname}: {per_call[dname]}; device µs by "
             f"operation (the first call of each): {by_op[dname]}")
         if dtype == torch.float32:
@@ -973,6 +1059,9 @@ def phase_decoder(torch, F, sass):
             planner = plan_check(torch, cases[0][2][1:])
         del model, rcus, tail, head_io, cases, outs
         torch.cuda.empty_cache()
+    if per_call["bfloat16"]["fused_head_tail"] > 3:
+        fail(f"a bf16 K5 call made {per_call['bfloat16']['fused_head_tail']} CUDA launches, "
+             f"more than prepare, upsample and conv: {by_op['bfloat16']['fused_head_tail']}")
     log(f"decoder kernels' launches on the live decoder: {live}")
     for name in kernels:
         if not all(counts[name] >= 1 for counts in live.values()):
@@ -1006,10 +1095,9 @@ def phase_decoder(torch, F, sass):
             "launches_by_path": {f"decoder_live_{d}": counts[name] for d, counts in live.items()},
             "cuda_launches_per_call": {d: counts[name] for d, counts in per_call.items()},
         })
-        if name in ("fused_rcu", "fused_rcu_tail"):
-            entries[-1]["tensor_cores"] = {"bfloat16": "wgmma fed by TMA (csrc/conv_wgmma.cuh)",
-                                           "float32": "none: CUDA cores",
-                                           "sass": sass[src.split(".")[0]]}
+        entries[-1]["tensor_cores"] = {"bfloat16": "wgmma fed by TMA (csrc/conv_wgmma.cuh)",
+                                       "float32": "none: CUDA cores",
+                                       "sass": sass[src.split(".")[0]]}
     return entries
 
 
@@ -1594,9 +1682,9 @@ def main():
     set_tf32(torch, False)
     log("TF32 is off for the parity phases (cudnn.allow_tf32 = matmul.allow_tf32 = False)")
 
-    with phase("K1 against its plain version"):
-        k1 = phase_k1(torch, F, wa)
     sass = tensor_core_proof(_build)
+    with phase("K1 against its plain version"):
+        k1 = phase_k1(torch, F, wa, sass)
     with phase("K6 against its plain version"):
         k6 = phase_k6(torch, F, ga, sass)
     with phase("K7 against its plain version"):

@@ -1,8 +1,8 @@
-// Helpers of the decoder convolutions on CUDA cores: the f32 route of the
-// fused residual conv unit (fused_rcu.cu, K3) and of the fusion-block tail
-// (fused_fusion.cu, K4), and the depth-head tail (fused_head.cu, K5) in
-// both dtypes. The bf16 route of K3 and K4 runs on the tensor cores
-// (conv_wgmma.cuh) and takes only the upsample's Lerp and blend from here.
+// Helpers of the decoder convolutions on CUDA cores: the f32 routes of the
+// fused residual conv unit (fused_rcu.cu, K3), the fusion-block tail
+// (fused_fusion.cu, K4) and the depth-head tail (fused_head.cu, K5). Their
+// bf16 routes run on the tensor cores (conv_wgmma.cuh); the upsample's
+// Lerp and blend come from upsample.cuh.
 //
 // One block of 256 threads computes a spatial tile of a 3x3 (or 1x1)
 // convolution as an implicit GEMM on CUDA cores. The source tile (pixels
@@ -21,6 +21,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "upsample.cuh"
 
 extern __shared__ __align__(16) unsigned char conv_smem[];
 
@@ -115,30 +117,6 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ img, int H, int
     }
     Quad<T>::store(dst + pix * KC + c, v);
   }
-}
-
-// One pixel's bilinear 2x upsample with align_corners=True along one
-// axis, as torch computes it: source coordinate scale * o with
-// scale = (n - 1) / (2n - 1) in f32, the lower neighbour i0 = floor, the
-// upper one i0 + 1 clamped to the image, and the weight of the upper one.
-struct Lerp {
-  int i0, i1;
-  float t;
-};
-__device__ __forceinline__ Lerp lerp_2x(int o, int n, float scale) {
-  const float src = scale * (float)o;
-  Lerp l;
-  l.i0 = (int)src;
-  l.i1 = l.i0 + (l.i0 < n - 1 ? 1 : 0);
-  l.t = src - (float)l.i0;
-  return l;
-}
-
-// torch's blend of four neighbours: (1-ty)((1-tx) a + tx b) + ty((1-tx) c + tx d)
-__device__ __forceinline__ float blend(const Lerp& ly, const Lerp& lx, float a, float b,
-                                       float c, float d) {
-  const float wx0 = 1.f - lx.t;
-  return (1.f - ly.t) * (wx0 * a + lx.t * b) + ly.t * (wx0 * c + lx.t * d);
 }
 
 // Source offsets (in pixels of a source of width src_w) of this thread's

@@ -1,8 +1,9 @@
-// A g++ emulation of csrc/wgmma_common.cuh, for rehearsing the bf16 route
-// of global attention (K6, K7) on a machine without a card or nvcc:
-// rehearse.py compiles the kernels' code against this header instead of
-// the real one and drives the real wrappers through it. Same names and
-// API; one std::thread per CUDA thread, CTAs one after another.
+// A g++ emulation of csrc/wgmma_common.cuh, for rehearsing the bf16 routes
+// of window attention (K1), the depth-head tail (K5) and global attention
+// (K6, K7) on a machine without a card or nvcc: rehearse.py compiles the
+// kernels' code against this header instead of the real one and drives the
+// real wrappers through it. Same names and API; one std::thread per CUDA
+// thread, CTAs one after another.
 //
 // * an mbarrier: {pending arrivals, tx bytes, phase} under the CTA's mutex;
 //   a wait on a phase that never completes aborts after 20 s;
@@ -14,7 +15,10 @@
 //   SBO through the same swizzle; an A operand in registers is exchanged
 //   through a buffer of the warpgroup; a warpgroup barrier stands for the
 //   collective issue;
-// * shuffles and named barriers: per-warp buffers and std::barrier.
+// * shuffles and named barriers: per-warp buffers and std::barrier;
+//   __shared__ arrays of a kernel (rewritten by rehearse.py) live in a
+//   per-CTA buffer; the vector types, cache-hinted loads and stores and
+//   fences the decoder kernels use are plain C++.
 // Shared memory starts NaN-poisoned and 16 bytes off a 1 KB boundary.
 #pragma once
 #include <cstdint>
@@ -31,6 +35,7 @@
 #include <memory>
 #include <chrono>
 #include <algorithm>
+#include <atomic>
 using std::min;
 using std::max;
 
@@ -53,6 +58,23 @@ inline thread_local dim3 gridDim, blockDim;
 struct __nv_bfloat16 { uint16_t x; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
 struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+struct uint4 { uint32_t x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
+inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
+inline uint32_t __vmaxs2(uint32_t a, uint32_t b) {
+  uint32_t r = 0;
+  for (int i = 0; i < 2; ++i) {
+    const int16_t x = (int16_t)(a >> (16 * i)), y = (int16_t)(b >> (16 * i));
+    r |= (uint32_t)(uint16_t)std::max(x, y) << (16 * i);
+  }
+  return r;
+}
+template <class T> inline void __stcg(T* p, T v) { *p = v; }
+template <class T> inline T __ldcg(const T* p) { return *p; }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline float __bfloat162float(__nv_bfloat16 b) { uint32_t u = (uint32_t)b.x << 16; float f; memcpy(&f, &u, 4); return f; }
 inline __nv_bfloat16 __float2bfloat16(float f) {
   uint32_t u; memcpy(&u, &f, 4);
@@ -86,10 +108,12 @@ struct Cta {
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar, wg_bar;
   std::vector<float> shfl;
   std::vector<uint32_t> afrag;
+  std::vector<unsigned char> statics;
   std::map<int, std::unique_ptr<std::barrier<>>> named;
 };
 inline thread_local Cta* cta = nullptr;
 inline unsigned char* emu_smem() { return cta->smem.data(); }
+inline unsigned char* emu_static_smem() { return cta->statics.data(); }
 inline void __syncthreads() { cta->all->arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float x, int m) {
   const int t = threadIdx.x, w = t / 32, l = t % 32;
@@ -112,6 +136,7 @@ void emu_launch(K kernel, dim3 grid, int threads, int smem, A... args) {
         for (int w = 0; w < threads / 128; ++w) c.wg_bar.push_back(std::make_unique<std::barrier<>>(128));
         c.shfl.assign(threads + 32, 0.f);
         c.afrag.assign(4 * threads + 128, 0u);
+        c.statics.assign(48 * 1024, 0xff);
         std::vector<std::thread> ts;
         for (int t = 0; t < threads; ++t)
           ts.emplace_back([&, t] {
@@ -181,6 +206,7 @@ inline void mbar_wait(uint32_t bar, uint32_t parity) {
 inline void prefetch_map(const CUtensorMap*) {}
 inline void fence_barrier_init() {}
 inline void fence_proxy_async() {}
+inline int add_one_acq_rel(int* p) { return __atomic_fetch_add(p, 1, __ATOMIC_ACQ_REL); }
 
 inline void tma_load(uint32_t dst, const CUtensorMap* m, uint32_t bar, const int* c) {
   if (dst % 1024) { fprintf(stderr, "EMU: TMA destination %u not 1 KB aligned\n", dst); abort(); }

@@ -19,11 +19,11 @@
 // preparation, conv1 and conv2 as in K3 (fused_rcu.cu), conv2's epilogue
 // storing
 // m = bf16(s + conv + b2); the 1x1 conv, the same kernel with one tap and
-// + bo in its epilogue; then upsample2x_bf16 below, each output pixel
-// blended from four neighbours with the clamped indices of Lerp
-// (conv_common.cuh), so nothing outside the image is read. Entries
-// soccdpt_prepare_bf16 and soccdpt_conv_bf16 (conv_wgmma.cuh), and
-// soccdpt_upsample2x_bf16.
+// + bo in its epilogue; then upsample2x_bf16 (upsample.cuh), each output
+// pixel blended from four neighbours with the clamped indices of Lerp, so
+// nothing outside the image is read. Entries soccdpt_prepare_bf16 and
+// soccdpt_conv_bf16 (conv_wgmma_entries.cuh), and soccdpt_upsample2x_bf16
+// (upsample.cuh).
 //
 // f32, on CUDA cores (conv_common.cuh): one block of 256 threads per
 // (image, TH x TW tile of m). It computes, all in shared memory: mid over
@@ -42,7 +42,7 @@
 // m at C = 256: the operations.
 
 #include "conv_common.cuh"
-#include "conv_wgmma.cuh"
+#include "conv_wgmma_entries.cuh"
 
 namespace {
 
@@ -198,37 +198,6 @@ cudaError_t launch(const void* s, const void* w1, const void* b1, const void* w2
   return cudaGetLastError();
 }
 
-// The bf16 route's upsample: y (B, H, W, C) -> out (B, 2H, 2W, C), one
-// thread a pixel and 8 channels (16 bytes), the blend in f32, rounded once.
-__global__ void upsample2x_bf16(const __nv_bfloat16* __restrict__ y,
-                                __nv_bfloat16* __restrict__ out, int B, int H, int W, int C) {
-  const int C8 = C / 8, H2 = 2 * H, W2 = 2 * W;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)B * H2 * W2 * C8) return;
-  const int c = 8 * (int)(i % C8);
-  const size_t pix = i / C8;
-  const int gx = (int)(pix % W2), gy = (int)(pix / W2 % H2), b = (int)(pix / ((size_t)W2 * H2));
-  const float scale_h = H > 1 ? (float)(H - 1) / (float)(H2 - 1) : 0.f;
-  const float scale_w = W > 1 ? (float)(W - 1) / (float)(W2 - 1) : 0.f;
-  const Lerp ly = lerp_2x(gy, H, scale_h), lx = lerp_2x(gx, W, scale_w);
-  const __nv_bfloat16* yb = y + (size_t)b * H * W * C + c;
-  auto load8 = [&](int row, int col, float* f) {
-    const __nv_bfloat16* at = yb + ((size_t)row * W + col) * C;
-    Quad<__nv_bfloat16>::load(at, f);
-    Quad<__nv_bfloat16>::load(at + 4, f + 4);
-  };
-  float a[8], bb[8], cc[8], dd[8], v[8];
-  load8(ly.i0, lx.i0, a);
-  load8(ly.i0, lx.i1, bb);
-  load8(ly.i1, lx.i0, cc);
-  load8(ly.i1, lx.i1, dd);
-#pragma unroll
-  for (int q = 0; q < 8; ++q) v[q] = blend(ly, lx, a[q], bb[q], cc[q], dd[q]);
-  __nv_bfloat16* ob = out + (pix * C + c);
-  Quad<__nv_bfloat16>::store(ob, v);
-  Quad<__nv_bfloat16>::store(ob + 4, v + 4);
-}
-
 }  // namespace
 
 extern "C" {
@@ -249,16 +218,6 @@ int soccdpt_fused_fusion(const void* s, const void* w1, const void* b1, const vo
     case 4: return (int)launch<float, 4, 4>(s, w1, b1, w2, b2, wo, bo, out, B, H, W, C, st);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// y: (B, H, W, C), out: (B, 2H, 2W, C), bf16, C a multiple of 8.
-int soccdpt_upsample2x_bf16(const void* y, void* out, int B, int H, int W, int C, void* stream) {
-  const size_t n = (size_t)B * 4 * H * W * (C / 8);
-  if (n == 0) return (int)cudaGetLastError();
-  if (C % 8) return (int)cudaErrorInvalidValue;
-  upsample2x_bf16<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)y, (__nv_bfloat16*)out, B, H, W, C);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -17,7 +17,7 @@
 // zero-filling TMA box, which is exactly its zero padding, and stores
 // bf16(conv + b2 + x). mid (8 MB at 128x128x256) stays in the 50 MB L2
 // between the two; no halo is recomputed. Entries soccdpt_prepare_bf16 and
-// soccdpt_conv_bf16, defined in conv_wgmma.cuh.
+// soccdpt_conv_bf16, defined in conv_wgmma_entries.cuh.
 //
 // f32, on CUDA cores (conv_common.cuh): one block of 256 threads per
 // (image, TH x TW output tile). Phase 1 computes the intermediate over the
@@ -35,7 +35,7 @@
 // bytes.
 
 #include "conv_common.cuh"
-#include "conv_wgmma.cuh"
+#include "conv_wgmma_entries.cuh"
 
 namespace {
 

@@ -1,8 +1,9 @@
 """What the three decoder-convolution wrappers (K3 ``fused_rcu``, K4
 ``fused_fusion``, K5 ``fused_head``) share: argument checks, the weights
 in the kernels' layout, the guard against gradients, the tile choice of
-the f32 route on CUDA cores (``pick_tile``), and the launch planner and
-call of the bf16 route on the tensor cores (``plan_conv``, ``conv_bf16``:
+the f32 route on CUDA cores (``pick_tile``), and the launch planners and
+calls of the bf16 route on the tensor cores (``plan_conv`` and
+``conv_bf16`` for K3/K4, ``plan_head`` and ``prepare_head_bf16`` for K5:
 ``csrc/conv_wgmma.cuh``).
 
 Public weights are HWIO, ``(3, 3, Ci, Co)``, as the JAX package passes
@@ -32,7 +33,11 @@ KC, CO = 8, 64  # staged input channels and output channels per chunk (conv_comm
 # kernel's ``config`` index, larger first (more reuse of each loaded byte)
 KSTEP, STAGES = 64, 6
 WGMMA_TILES = ((16, 8, 128), (8, 8, 128), (8, 8, 64))
-EPI_CONV1, EPI_RESIDUAL, EPI_BIAS = 0, 1, 2  # conv_wgmma.cuh, enum Epilogue
+# K5's conv (EPI_HEAD in conv_wgmma.cuh; csrc/fused_head.cu, dispatch_head),
+# by its ``config`` index: the box of output pixels and the N tile, against
+# Cm; a CTA walks ceil(Cm / bn) N tiles, so it sums the 1x1 conv itself
+HEAD_TILES = ((16, 8, 64), (16, 8, 128), (8, 8, 64), (8, 8, 128))
+EPI_CONV1, EPI_RESIDUAL, EPI_BIAS, EPI_HEAD = 0, 1, 2, 3  # conv_wgmma.cuh, enum Epilogue
 MIN_SPLIT_KSTEPS = 9  # the shortest run of K-steps a split-K CTA is given
 
 
@@ -141,10 +146,12 @@ class ConvPlan:
     n_tiles: int  # tiles of bn output channels
     ksteps: int  # taps x ceil(C / KSTEP)
     splits: int  # CTAs that share the K-steps of one output tile
+    walk: int = 1  # N tiles a CTA walks (K5's head conv; K3/K4: 1)
+    head: bool = False  # ``config`` indexes HEAD_TILES, not WGMMA_TILES
 
     @property
     def box(self) -> Tuple[int, int, int]:
-        return WGMMA_TILES[self.config]
+        return (HEAD_TILES if self.head else WGMMA_TILES)[self.config]
 
     @property
     def tiles(self) -> int:
@@ -196,6 +203,62 @@ def plan_conv(B: int, H: int, W: int, C: int, taps: int) -> ConvPlan:
     return dataclasses.replace(most, splits=splits)
 
 
+def _as_read(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A weight as the preparation reads it: detached, on the activation's
+    device, in f32 or bf16 (any other dtype goes to f32), any strides."""
+    t = t.detach().to(like.device)
+    return t if t.dtype in (torch.float32, torch.bfloat16) else t.float()
+
+
+def plan_head(B: int, H: int, W: int, Ci: int, Cm: int) -> ConvPlan:
+    """The launch of K5's head conv over the upsampled map (B, H, W, Ci) to
+    Cm channels: the N tile against Cm (64 up to Cm = 64, else 128, which a
+    CTA walks ceil(Cm / 128) times, so that it sums the 1x1 conv over every
+    channel without atomics), and the larger box (16x8, else 8x8) that gives
+    at least half the SMs a CTA. K is never split: the epilogue is not
+    linear in the sums."""
+    bn = 64 if Cm <= 64 else 128
+    ksteps = 9 * -(-Ci // KSTEP)
+    plans = [ConvPlan(config, -(-H // box_h), -(-W // box_w), B, 1, ksteps, 1,
+                      walk=-(-Cm // bn), head=True)
+             for config, (box_h, box_w, tile_bn) in enumerate(HEAD_TILES) if tile_bn == bn]
+    return next((p for p in plans if 2 * p.ctas >= SMS), plans[-1])
+
+
+def head_columns(Cm: int) -> int:
+    """The columns of K5's prepared weight and vector rows: Cm rounded up to
+    a multiple of 8, so that a row is whole 16 bytes, as TMA needs."""
+    return -(-Cm // 8) * 8
+
+
+def prepare_head_bf16(lib: ctypes.CDLL, like: torch.Tensor, w2: torch.Tensor, vectors):
+    """K5's one preparation launch: w2 (3, 3, Ci, Cm) (any strides, f32 or
+    bf16) to bf16 ``[9][Ci][Cw]`` with zero columns past Cm, and the
+    vectors b2 (Cm), w3 (Cm or (1, 1, Cm, 1)) and b3 (a scalar or (1,))
+    rounded to bf16 into an f32 ``(3, Cw)`` (rows b2, w3, b3), as the head
+    conv's epilogue reads them. Returns ``(weight, vectors)``."""
+    Ci, Cm = w2.shape[2], w2.shape[3]
+    Cw = head_columns(Cm)
+    w2 = _as_read(w2, like)
+    vecs = [_as_read(v, like).reshape(-1) for v in vectors]
+    w_out = torch.empty((9, Ci, Cw), dtype=torch.bfloat16, device=like.device)
+    vec_out = torch.empty((3, Cw), dtype=torch.float32, device=like.device)
+    fn = lib.soccdpt_prepare_head_bf16
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    args = [(ctypes.c_longlong * 4)(*w2.stride()),
+            (ctypes.c_void_p * 3)(*[v.data_ptr() for v in vecs]),
+            (ctypes.c_longlong * 3)(*[v.stride(0) for v in vecs]),
+            (ctypes.c_int * 3)(*[v.numel() for v in vecs]),
+            (ctypes.c_int * 3)(*[int(v.dtype == torch.bfloat16) for v in vecs])]
+    a = [ctypes.cast(x, ctypes.c_void_p) for x in args]
+    rc = fn(w2.data_ptr(), a[0], int(w2.dtype == torch.bfloat16), w_out.data_ptr(), *a[1:],
+            vec_out.data_ptr(), Ci, Cm, Cw, torch.cuda.current_stream(like.device).cuda_stream)
+    _build.check(lib, rc, "head weight preparation kernel")
+    return w_out, vec_out
+
+
 def prepare_bf16(lib: ctypes.CDLL, like: torch.Tensor, weights, scratch: "Scratch"):
     """The one launch that prepares a bf16 call: each HWIO weight
     ``(3, 3, C, C)`` or ``(1, 1, C, C)`` (any strides, f32 or bf16; a port module's OIHW
@@ -203,10 +266,7 @@ def prepare_bf16(lib: ctypes.CDLL, like: torch.Tensor, weights, scratch: "Scratc
     the tensor-core convolution reads it, and the split-K counters of
     ``scratch`` to zero. Returns the converted weights."""
     C = like.shape[-1]
-    views = []
-    for w in weights:
-        w = w.detach().to(like.device)
-        views.append(w if w.dtype in (torch.float32, torch.bfloat16) else w.float())
+    views = [_as_read(w, like) for w in weights]
     outs = [torch.empty((v.shape[0] * v.shape[1], C, C), dtype=torch.bfloat16, device=like.device)
             for v in views]
     n = len(views)

@@ -15,12 +15,22 @@ its ``conv1`` when ``non_negative`` is set: K5 is the tail of a
 non-negative head only. Ci a multiple of 8, Cm of 4.
 
 Bound on the H100: operations (9 Ci Cm multiply-adds per output pixel).
-The upsampled map never reaches device memory: the kernel blends the
-tile it convolves straight from ``x`` into shared memory.
+Two routes, by dtype:
 
-``fused_head_tail`` launches the kernel for CUDA tensors and runs
+* bf16, on the tensor cores: three CUDA launches. One prepares the call
+  (``_conv.prepare_head_bf16``: w2 to bf16 in the kernel's layout, b2,
+  w3 and b3 rounded to bf16, from the weights as they lie, any strides);
+  the upsample pass writes ``u`` in bf16 (``csrc/upsample.cuh``, K4's); the
+  3x3 conv runs as ``csrc/conv_wgmma.cuh``'s implicit GEMM over ``u``,
+  planned by ``_conv.plan_head``, with the head's epilogue (the ReLU, the
+  1x1 conv to one channel, its bias and the final ReLU) in registers.
+* f32: one launch on CUDA cores; the upsampled map never reaches device
+  memory (the kernel blends the tile it convolves straight from ``x``
+  into shared memory); f32 products, which the f32 bound (2e-5) needs.
+
+``fused_head_tail`` launches the kernels for CUDA tensors and runs
 ``fused_head_tail_plain`` for CPU tensors; ``fused_head_tail.launches``
-counts launches. Gradient: as JAX's ``_fht_bwd`` recomputes through XLA,
+counts calls of the op on the card. Gradient: as JAX's ``_fht_bwd`` recomputes through XLA,
 a call whose inputs need a gradient is a ``torch.autograd.Function``
 whose forward is the kernel and whose backward recomputes through the
 plain version and returns its autograd gradients (no kernel).
@@ -32,7 +42,17 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from . import _build
-from ._conv import activation, call, check_activation, check_shape, kernel_param, oihw
+from ._conv import (
+    activation,
+    call,
+    check_activation,
+    check_shape,
+    head_columns,
+    kernel_param,
+    oihw,
+    plan_head,
+    prepare_head_bf16,
+)
 
 
 def fused_head_tail_plain(x, w2, b2, w3, b3):
@@ -57,18 +77,41 @@ def _check(x, w2, b2, w3, b3):
     check_shape(b3, [(), (1,)], "b3")
 
 
-def _launch(x, w2, b2, w3, b3):
+def _launch_f32(x, w2, b2, w3, b3):
     B, H, W, Ci = x.shape
     Cm = w2.shape[-1]
-    x = activation(x)
     params = [kernel_param(w2, (9, Ci, Cm), x), kernel_param(b2, (Cm,), x),
               kernel_param(w3, (Cm,), x), kernel_param(b3, (1,), x)]
     out = torch.empty((B, 2 * H, 2 * W), dtype=x.dtype, device=x.device)
     lib = _build.load("fused_head")
-    rc = call(lib, "soccdpt_fused_head", [x, *params, out],
-              [B, H, W, Ci, Cm, int(x.dtype == torch.bfloat16)],
+    rc = call(lib, "soccdpt_fused_head_f32", [x, *params, out], [B, H, W, Ci, Cm],
               torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "depth-head tail kernel")
+    return out
+
+
+def _launch_bf16(x, w2, b2, w3, b3):
+    """Three launches: the preparation, the upsample, the head conv."""
+    B, H, W, Ci = x.shape
+    Cm = w2.shape[-1]
+    plan = plan_head(B, 2 * H, 2 * W, Ci, Cm)
+    lib = _build.load("fused_head")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    w, vec = prepare_head_bf16(lib, x, w2, [b2, w3, b3])
+    u = torch.empty((B, 2 * H, 2 * W, Ci), dtype=x.dtype, device=x.device)
+    rc = call(lib, "soccdpt_upsample2x_bf16", [x, u], [B, H, W, Ci], stream)
+    _build.check(lib, rc, "upsample kernel")
+    out = torch.empty((B, 2 * H, 2 * W), dtype=x.dtype, device=x.device)
+    rc = call(lib, "soccdpt_head_conv_bf16", [u, w, vec, out],
+              [B, 2 * H, 2 * W, Ci, Cm, head_columns(Cm), plan.config, plan.walk], stream)
+    _build.check(lib, rc, "depth-head conv kernel")
+    return out
+
+
+def _launch(x, w2, b2, w3, b3):
+    x = activation(x)
+    launch = _launch_bf16 if x.dtype == torch.bfloat16 else _launch_f32
+    out = launch(x, w2, b2, w3, b3)
     fused_head_tail.launches += 1
     return out
 
@@ -110,8 +153,8 @@ def fused_head_tail(
     w3: torch.Tensor,
     b3: torch.Tensor,
 ) -> torch.Tensor:
-    """The fused depth-head tail: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. Returns (B, 2H, 2W) in x's dtype. When
+    """The fused depth-head tail: the CUDA kernels for CUDA tensors (bf16 on
+    the tensor cores, f32 on CUDA cores), the plain version for CPU tensors. Returns (B, 2H, 2W) in x's dtype. When
     an input needs a gradient the call is recorded for autograd (see the
     module docstring); otherwise it is the bare forward."""
     if x.device.type not in ("cuda", "cpu"):

@@ -235,3 +235,158 @@ def test_a_bf16_call_with_a_tile_raises(op):
             assert fused_rcu(s, w, b, w, b, tile=4).shape == s.shape
         else:
             assert fused_rcu_tail(s, w, b, w, b, wo, b, tile=4).shape == (1, 8, 8, C)
+
+
+# --- K5: the depth head's conv, Ci -> Cm, with the head epilogue ----------------------
+
+# (B, H, W, Ci, Cm) of the conv, at the upsampled size: the flagship's and
+# BEiT-large's head at batch 1 and 2, the mirrored JAX cases, ragged maps,
+# Cm = 4, 36 (columns padded to 40) and above 128 (two N tiles walked)
+HEAD_SHAPES = [(1, 256, 256, 128, 32), (2, 512, 512, 128, 32), (1, 32, 32, 8, 8),
+               (2, 32, 64, 16, 8), (1, 14, 18, 16, 8), (2, 10, 26, 64, 36), (1, 2, 6, 8, 4),
+               (1, 16, 16, 16, 200), (1, 8, 12, 64, 256)]
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
+def test_head_plans_take_bn_against_cm_and_walk_every_channel(shape):
+    B, H, W, Ci, Cm = shape
+    plan = _conv.plan_head(B, H, W, Ci, Cm)
+    box_h, box_w, bn = plan.box
+    assert plan.head and plan.box == _conv.HEAD_TILES[plan.config]
+    # bn 64 up to Cm = 64, else 128; the CTA walks its N tiles over every channel
+    assert bn == (64 if Cm <= 64 else 128)
+    assert plan.walk == -(-Cm // bn) and plan.walk * bn >= Cm > (plan.walk - 1) * bn
+    # one CTA a box: no split of K, no grid of N tiles (the 1x1 conv sums them)
+    assert plan.splits == 1 and plan.n_tiles == 1 and plan.partial_floats == 0
+    assert plan.ksteps == 9 * -(-Ci // _conv.KSTEP)
+    assert plan.smem_bytes <= _conv.MAX_SMEM_BYTES
+    covered = np.zeros((H, W), bool)
+    for by in range(plan.boxes_y):
+        for bx in range(plan.boxes_x):
+            covered[by * box_h:(by + 1) * box_h, bx * box_w:(bx + 1) * box_w] = True
+    assert covered.all() and plan.tiles == B * plan.boxes_y * plan.boxes_x
+
+
+@pytest.mark.parametrize("Cm,bn,walk", [(4, 64, 1), (32, 64, 1), (36, 64, 1), (64, 64, 1),
+                                        (72, 128, 1), (128, 128, 1), (136, 128, 2),
+                                        (200, 128, 2), (260, 128, 3)])
+def test_head_n_tiles_against_cm(Cm, bn, walk):
+    plan = _conv.plan_head(1, 64, 64, 128, Cm)
+    assert (plan.box[2], plan.walk) == (bn, walk)
+    # the prepared rows: Cm rounded up to 8 columns, whole 16-byte rows for TMA
+    assert _conv.head_columns(Cm) % 8 == 0 and 0 <= _conv.head_columns(Cm) - Cm < 8
+
+
+def test_the_flagship_head_fills_the_card_with_the_larger_box():
+    plan = _conv.plan_head(1, 256, 256, 128, 32)
+    assert plan.box == (16, 8, 64) and plan.ctas == 512
+    # a small map takes the 8x8 box, which gives more CTAs
+    assert _conv.plan_head(1, 32, 32, 8, 8).box == (8, 8, 64)
+
+
+def test_every_head_tile_fits_a_blocks_shared_memory():
+    for box_h, box_w, bn in _conv.HEAD_TILES:
+        assert _conv.wgmma_smem_bytes(box_h, box_w, bn) <= _conv.MAX_SMEM_BYTES
+        assert box_h * box_w % 64 == 0 and bn % 64 == 0
+
+
+class _FakeHeadLib:
+    """Stands in for the fused-head library: records the entries a call
+    reaches and decodes the preparation's arguments."""
+
+    def __init__(self):
+        self.calls, self.prepared = [], None
+        for name in ("soccdpt_upsample2x_bf16", "soccdpt_head_conv_bf16",
+                     "soccdpt_fused_head_f32"):
+            setattr(self, name, self._entry(name))
+        self.soccdpt_prepare_head_bf16 = self._prepare_entry()
+
+    def _entry(self, name):
+        lib = self
+
+        class Entry:
+            argtypes = restype = None
+
+            def __call__(self, *args):
+                lib.calls.append((name, args))
+                return 0
+        return Entry()
+
+    def _prepare_entry(self):
+        import ctypes
+
+        lib = self
+
+        def read(arg, kind, count):
+            return list((kind * count).from_address(arg.value))
+
+        class Entry:
+            argtypes = restype = None
+
+            def __call__(self, w2, strides, is_bf16, w_out, vec, vec_strides, vec_n, vec_bf16,
+                         vec_out, Ci, Cm, Cw, stream):
+                lib.calls.append(("soccdpt_prepare_head_bf16", ()))
+                lib.prepared = {"w2": w2, "strides": read(strides, ctypes.c_longlong, 4),
+                                "is_bf16": is_bf16, "w_out": w_out,
+                                "vec": read(vec, ctypes.c_void_p, 3),
+                                "vec_strides": read(vec_strides, ctypes.c_longlong, 3),
+                                "vec_n": read(vec_n, ctypes.c_int, 3),
+                                "vec_bf16": read(vec_bf16, ctypes.c_int, 3),
+                                "vec_out": vec_out, "dims": (Ci, Cm, Cw)}
+                return 0
+        return Entry()
+
+
+@pytest.fixture
+def fake_head(monkeypatch):
+    from soccdpt_torch.kernels import _build
+
+    lib = _FakeHeadLib()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("Stream", (), {"cuda_stream": 0})())
+    return lib
+
+
+@pytest.mark.parametrize("Cm", [8, 36])
+def test_a_bf16_head_call_is_prepare_upsample_conv(fake_head, Cm):
+    """Three launches: one preparation of all four weights as they lie (a
+    port module's OIHW conv weight seen as HWIO, w3 in its (1, 1, Cm, 1)
+    form, a scalar b3), the upsample of x into u, the head conv of u."""
+    from soccdpt_torch.kernels import fused_head as fh
+
+    B, H, W, Ci = 2, 5, 7, 16
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((B, H, W, Ci)).astype(np.float32)).bfloat16()
+    w2 = torch.from_numpy(rng.standard_normal((Cm, Ci, 3, 3)).astype(np.float32)).permute(
+        2, 3, 1, 0)
+    b2 = torch.zeros(Cm)
+    w3 = torch.zeros(1, Cm, 1, 1).permute(2, 3, 1, 0)
+    b3 = torch.zeros(())
+    before = fh.fused_head_tail.launches
+    out = fh._launch(x, w2, b2, w3, b3)
+    assert fh.fused_head_tail.launches == before + 1
+    assert [name for name, _ in fake_head.calls] == [
+        "soccdpt_prepare_head_bf16", "soccdpt_upsample2x_bf16", "soccdpt_head_conv_bf16"]
+    seen = fake_head.prepared
+    Cw = _conv.head_columns(Cm)
+    assert seen["w2"] == w2.data_ptr() and seen["strides"] == list(w2.stride())
+    assert seen["is_bf16"] == 0 and seen["dims"] == (Ci, Cm, Cw)
+    assert seen["vec"] == [b2.data_ptr(), w3.data_ptr(), b3.data_ptr()]
+    assert seen["vec_n"] == [Cm, Cm, 1] and seen["vec_bf16"] == [0, 0, 0]
+    _, up = fake_head.calls[1]
+    assert up[0] == x.data_ptr() and up[2:6] == (B, H, W, Ci)
+    _, conv = fake_head.calls[2]
+    plan = _conv.plan_head(B, 2 * H, 2 * W, Ci, Cm)
+    assert conv[0] == up[1]  # the conv reads the upsample's output
+    assert conv[3] == out.data_ptr() and out.shape == (B, 2 * H, 2 * W)
+    assert out.dtype == torch.bfloat16
+    assert conv[4:12] == (B, 2 * H, 2 * W, Ci, Cm, Cw, plan.config, plan.walk)
+
+
+def test_an_f32_head_call_takes_the_cuda_core_entry(fake_head):
+    from soccdpt_torch.kernels import fused_head as fh
+
+    x = torch.zeros(1, 4, 4, 8)
+    fh._launch(x, torch.zeros(3, 3, 8, 4), torch.zeros(4), torch.zeros(4), torch.zeros(1))
+    assert [name for name, _ in fake_head.calls] == ["soccdpt_fused_head_f32"]
