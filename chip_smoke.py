@@ -13,7 +13,11 @@ Phases, each of which fails the run on any error:
    by CUDA-graph replay beside its memory/compute bound and a library
    yardstick: K1 window attention (also on the strided q, k, v views and
    the bf16 tau the Swin block hands it, one CUDA launch a call), K2
-   segment sum (against the grid's zeros and ``index_add_``), K6 global
+   segment sum (on contiguous rows and on the served channel-major
+   views, at batch 1 and 2, against the grid's zeros and ``index_add_``;
+   its backward bit for bit, beside ``index_select``; the
+   gradient through ``points_to_occupancy_grid`` against the CPU's; the
+   runs of equal slots of the served frames), K6 global
    attention, K7 its backward (against SDPA's backward, replayed alone);
    ``cuobjdump -sass`` of the K1, K3, K4, K5, K6 and K7 libraries must show
    ``HGMMA`` and ``UTMALDG``;
@@ -579,7 +583,61 @@ def k2_bytes(lin, num_slots, C):
     return lin.numel() * 4 + kept * C * 4 + num_slots * C * 4
 
 
-def phase_k2(torch, ss, occ_problem):
+def k2_backward_bytes(torch, lin, num_slots, C):
+    """The gather's bytes: the keys, the cotangent rows of the distinct kept
+    slots, the (N, C) gradient."""
+    keep = (lin >= 0) & (lin < num_slots)
+    return lin.numel() * 4 + torch.unique(lin[keep]).numel() * C * 4 + lin.numel() * C * 4
+
+
+def k2_runs(torch, lin, num_slots, B, C):
+    """Runs of equal consecutive kept slots of a served problem, and the
+    reductions K2 sends for it: one a channel for each run inside a
+    128-row tile of one image (a dropped row ends a run)."""
+    keep = (lin >= 0) & (lin < num_slots)
+    k = lin[keep]
+    starts = torch.ones_like(k, dtype=torch.bool)
+    starts[1:] = k[1:] != k[:-1]
+    first = torch.nonzero(starts).flatten()
+    lengths = torch.diff(first, append=torch.tensor([k.numel()], device=k.device))
+    key = torch.where(keep, lin, -1).view(B, -1)
+    tile_start = torch.ones_like(key, dtype=torch.bool)
+    tile_start[:, 1:] = key[:, 1:] != key[:, :-1]
+    tile_start[:, ::128] = True
+    return {"rows": lin.numel(), "kept": k.numel(), "runs": first.numel(),
+            "mean_run": k.numel() / max(first.numel(), 1),
+            "max_run": int(lengths.max()) if k.numel() else 0,
+            "distinct_slots": torch.unique(k).numel(),
+            "reductions_sent": int((tile_start & (key >= 0)).sum()) * C,
+            "reductions_per_row_and_channel_before": k.numel() * C}
+
+
+def k2_sass(_build):
+    """The f32 add reductions and atomics in the K2 library's SASS: the
+    scatter's adds are fire-and-forget (``RED``), none returns (``ATOM``)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("segment_sum"))],
+                          capture_output=True, text=True, check=True).stdout
+    ops = {}
+    for op in re.findall(r"\b((?:RED|ATOM)[A-Z]*\.[A-Z0-9_.]*ADD\.F32[A-Z0-9_.]*)", sass):
+        ops[op] = ops.get(op, 0) + 1
+    red = sum(n for op, n in ops.items() if op.startswith("RED"))
+    atom = sum(n for op, n in ops.items() if op.startswith("ATOM"))
+    log(f"K2 SASS f32 add reductions: {ops}")
+    if red == 0 or atom:
+        fail(f"K2's SASS shows {red} RED and {atom} ATOM f32 adds: its adds must be REDs")
+    return ops
+
+
+def phase_k2(torch, ss, problems, _build):
+    """K2 against its plain version, forward and backward, on random, strided, long-run and degenerate problems; the gradient
+    through ``points_to_occupancy_grid`` against the CPU's; times on the
+    served frames (``problems``: batch 1 and 2, the served (B, N, C) views)."""
+    from soccdpt_torch.ops.geometry import points_to_occupancy_grid
+
     dev = "cuda"
     n_frame, cells, C, B = 1920 * 1080, 256 * 256 * 32, 3, 2
     g = torch.Generator(device=dev).manual_seed(3)
@@ -595,6 +653,17 @@ def phase_k2(torch, ss, occ_problem):
     lin[pick[40_000:]] = -torch.randint(1, 1000, (20_000,), device=dev, generator=g,
                                         dtype=torch.int32)
     cases = [("flagship B=2, NaN/OOB/negative rows", lin, vals, S, K2_RTOL)]
+    # the same keys and values as a (B, N, C) view of a channel-major tensor
+    view = vals.reshape(B, n_frame, C).transpose(1, 2).contiguous().transpose(1, 2)
+    cases.append(("the same, values a transposed (B, N, C) view", lin, view, S, K2_RTOL))
+    # image-ordered keys: runs of equal slots up to 2,000 rows, some dropped
+    runs = torch.randint(1, 2000, (n_frame,), device=dev, generator=g)
+    start = torch.randint(0, cells, (n_frame,), device=dev, generator=g, dtype=torch.int32)
+    ordered = torch.cat([torch.repeat_interleave(start, runs)[:n_frame] + b * cells
+                         for b in range(B)])
+    ordered[torch.rand(B * n_frame, device=dev, generator=g) < 0.05] = -1
+    served = torch.rand(B, C, n_frame, device=dev, generator=g).transpose(1, 2)
+    cases.append(("image-ordered keys, long runs, B=2 view", ordered, served, S, K2_RTOL))
     ones = torch.ones(n_frame, C, device=dev)
     cases.append(("all rows in one cell", torch.full((n_frame,), 7, device=dev,
                                                       dtype=torch.int32), ones, cells,
@@ -605,9 +674,9 @@ def phase_k2(torch, ss, occ_problem):
                   torch.zeros(0, C, device=dev), cells, K2_RTOL))
     worst, checks = 0.0, []
     for name, l, v, s, rtol in cases:
+        want = ss.segment_sum_plain(l, v, s)
         got = ss.segment_sum(l, v, s)
         torch.cuda.synchronize()
-        want = ss.segment_sum_plain(l, v, s)
         err = float((got - want).abs().max()) if got.numel() else 0.0
         ok = bool(torch.isfinite(got).all()) and bool(
             ((got - want).abs() <= K2_ATOL + rtol * want.abs()).all())
@@ -617,44 +686,115 @@ def phase_k2(torch, ss, occ_problem):
         if not ok:
             fail(f"K2 disagrees with its plain version: {name}")
 
-    # timing on the served batch-1 frame's own keys and values. K2 allocates
-    # and zeroes its grid in every call, so the library call does too: the
-    # grid's zeros, then index_add_ of the rows kept (filtered beforehand,
-    # which K2 does inside). index_add_ into a grid made once is recorded
-    # beside it.
-    l, v, s = occ_problem
-    keep = (l >= 0) & (l < s)
-    lk, vk = l[keep].long(), v[keep]
-    acc = torch.zeros(s, v.shape[1], device=dev)
-    t = {
-        "ms": cuda_ms(torch, lambda: ss.segment_sum(l, v, s)),
-        "plain_ms": cuda_ms(torch, lambda: ss.segment_sum_plain(l, v, s), graph=False),
-        "library_ms": cuda_ms(torch, lambda: torch.zeros(s, v.shape[1], device=dev).index_add_(
-            0, lk, vk)),
-        "index_add_without_the_fill_ms": cuda_ms(torch, lambda: acc.index_add_(0, lk, vk)),
-    }
-    nbytes = k2_bytes(l, s, v.shape[1])
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    flop_ms = int(keep.sum()) * v.shape[1] / PEAK_FLOPS["float32"] * 1e3
-    log(f"K2 time, served frame ({l.numel()} rows, {int(keep.sum())} kept, {s} cells): "
-        f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, zeros + index_add_ "
-        f"{t['library_ms']:.4f} ms (index_add_ alone {t['index_add_without_the_fill_ms']:.4f} ms), "
-        f"bound {max(byte_ms, flop_ms):.4f} ms")
-    RECORD["k2"] = {"checks": checks, "timing": {**t, "rows": l.numel(),
-                                                 "kept": int(keep.sum()), "bytes": nbytes}}
+    # the backward: a gather, the same bits as the plain version
+    cot = torch.randn(S, C, device=dev, generator=g)
+    for name, l, s in (("flagship B=2", lin, S), ("served frame", problems[1][0], problems[1][2])):
+        c = cot[:s]
+        got = ss.segment_sum_backward(l, c)
+        torch.cuda.synchronize()
+        want = ss.segment_sum_backward_plain(l, c)
+        dropped = (l < 0) | (l >= s)
+        same = torch.equal(got, want) and not bool(got[dropped].any())
+        checks.append({"case": f"backward, {name}", "bit_for_bit": same})
+        log(f"K2 backward, {name}: the same bits as the plain version, zeros on "
+            f"{int(dropped.sum())} dropped rows: {same}")
+        if not same:
+            fail(f"K2's backward differs from its plain version: {name}")
+
+    # the gradient through points_to_occupancy_grid on the card against the
+    # CPU's: the same points and semantics, made on the CPU, so every row
+    # lands in the same slot on both; the semantics a (1, N, C) view of a
+    # channel-major leaf, as the served path hands them over
+    occ_cfg, points = problems["geometry"]
+    points = points.clone()
+    rng = np.random.default_rng(5)
+    sem = torch.from_numpy(rng.random((1, C, points.shape[1]), dtype=np.float32))
+    w = torch.from_numpy(rng.random((1, *occ_cfg.grid_size, C), dtype=np.float32))
+    grads = {}
+    for d in ("cpu", dev):
+        x = sem.detach().to(d).requires_grad_()
+        for fn in (ss.segment_sum, ss.segment_sum_backward):
+            fn.launches = 0
+        grid = points_to_occupancy_grid(points.to(d), x.transpose(1, 2), occ_cfg, C)
+        (grid * w.to(d)).sum().backward()
+        grads[d] = (grid.detach().cpu(), x.grad.cpu())
+        if d == dev and (ss.segment_sum.launches, ss.segment_sum_backward.launches) != (1, 1):
+            fail(f"the card's gradient took {ss.segment_sum.launches} forward and "
+                 f"{ss.segment_sum_backward.launches} backward launches, expected 1 and 1")
+    grid_err = float((grads[dev][0] - grads["cpu"][0]).abs().max())
+    grad_err = float((grads[dev][1] - grads["cpu"][1]).abs().max())
+    log(f"K2 gradient through points_to_occupancy_grid, card against CPU: grid max|err| "
+        f"{grid_err:.3g}, gradient max|err| {grad_err:.3g} (atol = rtol = {K2_ATOL})")
+    checks.append({"case": "gradient through points_to_occupancy_grid", "grid_max_abs_err":
+                   grid_err, "grad_max_abs_err": grad_err, "atol": K2_ATOL, "rtol": K2_ATOL})
+    if not all(bool(((a - b).abs() <= K2_ATOL + K2_ATOL * b.abs()).all())
+               for a, b in zip(grads[dev], grads["cpu"])):
+        fail("K2's gradient through points_to_occupancy_grid differs from the CPU's")
+
+    # times by graph replay on the served frames: batch 1 and 2, the served
+    # channel-major view and contiguous values. K2 makes and zeroes its grid
+    # in every call, so the library call does too: the grid's zeros, then
+    # index_add_ of the kept rows (filtered beforehand, which K2 does inside).
+    timing, launches = {}, {}
+    for B_ in (1, 2):
+        l, v, s = problems[B_]
+        rows = v.reshape(-1, C)
+        cont = rows.contiguous()
+        keep = (l >= 0) & (l < s)
+        lk, vk = l[keep].long(), cont[keep]
+        cot_b = cot[:s]
+        t = {f"{name}_ms": cuda_ms(torch, lambda v_=v_: ss.segment_sum(l, v_, s))
+             for name, v_ in (("view", v), ("contiguous", cont))}
+        t["library_ms"] = cuda_ms(torch, lambda: torch.zeros(s, C, device=dev).index_add_(
+            0, lk, vk))
+        t["backward_ms"] = cuda_ms(torch, lambda: ss.segment_sum_backward(l, cot_b))
+        t["index_select_ms"] = cuda_ms(torch, lambda: cot_b.index_select(0, lk))
+        if B_ == 1:
+            acc = torch.zeros(s, C, device=dev)
+            t["index_add_without_the_fill_ms"] = cuda_ms(torch, lambda: acc.index_add_(0, lk, vk))
+            t["plain_ms"] = cuda_ms(torch, lambda: ss.segment_sum_plain(l, v, s), graph=False)
+            t["backward_plain_ms"] = cuda_ms(
+                torch, lambda: ss.segment_sum_backward_plain(l, cot_b))
+            launches = {"forward": graph_launches(torch, lambda: ss.segment_sum(l, v, s)),
+                        "backward": graph_launches(
+                            torch, lambda: ss.segment_sum_backward(l, cot_b))}
+        nbytes, bbytes = k2_bytes(l, s, C), k2_backward_bytes(torch, l, s, C)
+        t.update({"bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                  "flop_bound_ms": int(keep.sum()) * C / PEAK_FLOPS["float32"] * 1e3,
+                  "backward_bytes": bbytes, "backward_bound_ms": bbytes / HBM_BYTES_PER_S * 1e3,
+                  "runs": k2_runs(torch, l, s, B_, C)})
+        timing[f"b{B_}"] = t
+        log(f"K2, served batch {B_} ({l.numel()} rows, {int(keep.sum())} kept, {s} cells): "
+            + ", ".join(f"{k} {x:.4f}" for k, x in t.items() if k.endswith("_ms"))
+            + f"; runs {t['runs']}")
+    log(f"K2 CUDA launches a call (nodes of a captured graph): {launches}")
+    design = {"forward": 2, "backward": 1}  # the memset and the kernel; the gather
+    if any(launches[k] > n for k, n in design.items()):
+        fail(f"K2 takes more CUDA launches a call than its design's {design}: {launches}")
+    sass = k2_sass(_build)
+    b1 = timing["b1"]
+    RECORD["k2"] = {"checks": checks, "timing": timing, "cuda_launches_per_call": launches,
+                    "sass_f32_adds": sass}
     return {
         "name": "segment_sum",
         "route": "cuda",
         "source": "soccdpt_torch/csrc/segment_sum.cu",
-        "replaces": "soccdpt_tpu/ops/sorted_segment_sum.py:151",
+        "replaces": "soccdpt_tpu/ops/sorted_segment_sum.py:205",
         "max_abs_err": worst,
         "tolerance": {"rtol": K2_RTOL, "rtol_one_cell": K2_ONE_CELL_RTOL, "atol": K2_ATOL},
-        **t,
-        "bound_ms": max(byte_ms, flop_ms),
-        "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
+        "ms": b1["view_ms"],
+        "plain_ms": b1["plain_ms"],
+        "library_ms": b1["library_ms"],
+        "bound_ms": max(b1["bound_ms"], b1["flop_bound_ms"]),
+        "bound_by": "bytes" if b1["bound_ms"] >= b1["flop_bound_ms"] else "operations",
+        "backward_ms": b1["backward_ms"],
+        "backward_library_ms": b1["index_select_ms"],
+        "backward_bound_ms": b1["backward_bound_ms"],
+        "launches_per_call": launches["forward"],
         "timed": "one served 1080p frame's keys into the 256x256x32x3 grid, its zero fill "
-                 "included",
-        "library": "torch.zeros of the grid, then index_add_ of the rows kept",
+                 "included, the values the served channel-major view",
+        "library": "torch.zeros of the grid, then index_add_ of the rows kept; backward: "
+                   "index_select of the kept rows",
     }
 
 
@@ -1371,16 +1511,19 @@ def phase_serving(torch, card, label):
     for k, us, c in rows[:12]:
         log(f"  {us:9.1f} us  x{c:5.1f}  {k[:90]}")
 
-    # the served batch-1 frame's own segment-sum problem for K2's timing
+    # the served frames' own segment-sum problems for K2: a batch-2 request
+    # and its first frame alone, the values the served (B, N, C) views
     with torch.inference_mode():
-        inv, seg, pts, _ = fn(frame)
+        inv, seg, pts, _ = fn(torch.cat([frame, frames_u8(torch, 1, 2001)]))
         occ_cfg = cfg32.occupancy
-        p = pts.reshape(1, -1, 3)
+        p = pts.reshape(2, -1, 3)
         p = p * torch.tensor(occ_cfg.pc_scale, device="cuda") + torch.tensor(
             occ_cfg.pc_shift, device="cuda")
         p = rotate_points(p, occ_cfg.correction_angle)
-        sem = seg.reshape(1, 3, -1).transpose(1, 2)
-        problem = occupancy_slots(p, sem, occ_cfg, 3)
+        sem = seg.reshape(2, 3, -1).transpose(1, 2)
+        problem = {2: occupancy_slots(p, sem, occ_cfg, 3),
+                   1: occupancy_slots(p[:1], sem[:1], occ_cfg, 3),
+                   "geometry": (occ_cfg, p[:1].cpu())}
 
     if label == "beit":
         # the same request with the folded biases stored in bf16: K6 reads
@@ -1706,7 +1849,7 @@ def main():
         torch.cuda.empty_cache()
     set_tf32(torch, False)
     with phase("K2 against its plain version"):
-        k2 = phase_k2(torch, ss, problem)
+        k2 = phase_k2(torch, ss, problem, _build)
     torch.cuda.empty_cache()
     for label, name in (("beit", "training dpt_beit_large_512"),
                         ("swin", "training dpt_swin2_tiny_256"),

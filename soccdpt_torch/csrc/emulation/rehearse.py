@@ -1,8 +1,8 @@
 """Rehearse the bf16 routes on the tensor cores without a card.
 
-    python soccdpt_torch/csrc/emulation/rehearse.py [global] [window] [head]
+    python soccdpt_torch/csrc/emulation/rehearse.py [global] [window] [head] [segment]
 
-With no argument all three run. Each compiles a route's kernels with g++
+With no argument all four run. Each compiles a route's kernels with g++
 against the emulated ``wgmma_common.cuh`` beside this file, into
 ``build/wgmma_emulation/``, and drives the real wrappers on CPU tensors
 through the emulated library:
@@ -22,6 +22,15 @@ through the emulated library:
   ``kernels/fused_head.py``'s ``_launch``: prepare, upsample, head conv,
   against ``fused_head_tail_plain`` at the decoder's bf16 bound (2e-2 of
   the largest value plus 2e-2 relative).
+
+* ``segment``: K2 (all of ``csrc/segment_sum.cu``, against the SIMT
+  emulation ``simt_common.cuh`` beside this file) through
+  ``kernels/segment_sum.py``'s ``_launch`` and ``_launch_backward``: sums
+  against ``segment_sum_plain`` (rtol 1e-5, atol 1e-5; 1e-4 where all
+  rows land in one cell) on contiguous rows,
+  channel-major and strided views, batch-folded keys with runs of equal
+  slots, NaN values on dropped rows, C = 1 ... 5, N = 0; the gradient
+  against ``segment_sum_backward_plain`` bit for bit.
 
 A few small shapes take minutes: every CUDA thread is an OS thread. A pass
 here says the ring, the barriers, the descriptors and the fragment layouts
@@ -47,6 +56,7 @@ sys.path.insert(0, str(REPO))
 from soccdpt_torch.kernels import _build  # noqa: E402
 from soccdpt_torch.kernels import fused_head as fh  # noqa: E402
 from soccdpt_torch.kernels import global_attention as ga  # noqa: E402
+from soccdpt_torch.kernels import segment_sum as ss  # noqa: E402
 from soccdpt_torch.kernels import window_attention as wa  # noqa: E402
 
 # (B, H, T, d, bias dtype, strided): ragged tiles, d = 16 and 128, a bf16
@@ -76,6 +86,24 @@ WINDOW_CASES = [
 # (B, H, W, Ci, Cm): Cm = 8 (one N tile, mostly zero columns), Cm = 36
 # (columns padded to 40), a ragged map, and Cm = 136 (two N tiles walked)
 HEAD_CASES = [(1, 8, 8, 8, 8), (2, 5, 13, 64, 36), (1, 7, 9, 16, 8), (1, 4, 6, 16, 136)]
+# (B, N, C, layout, keys): layout "rows" (contiguous (B, N, C)), "channels"
+# (a (B, C, N) tensor seen as (B, N, C), as the served voxelizer hands it
+# over) or "strided" (every other row of a larger tensor); keys "random"
+# (with negative and out-of-range ones), "runs" (image-ordered, runs of
+# equal slots up to 300 rows long, some dropped), "one" (one cell) or
+# "dropped" (none kept, NaN values)
+SEGMENT_CASES = [
+    (1, 1001, 3, "rows", "random"),
+    (2, 1024, 3, "channels", "runs"),
+    (2, 1000, 3, "channels", "runs"),
+    (1, 700, 3, "strided", "runs"),
+    (1, 4096, 3, "rows", "one"),
+    (1, 520, 2, "rows", "dropped"),
+    (2, 640, 1, "channels", "runs"),
+    (1, 900, 5, "strided", "runs"),
+    (2, 512, 4, "rows", "runs"),
+    (1, 0, 3, "rows", "random"),
+]
 
 
 def _split_args(s):
@@ -152,6 +180,61 @@ def build(route):
     return libs
 
 
+def build_segment():
+    """K2's whole source against ``simt_common.cuh``, its includes stubbed."""
+    out = OUT / "segment"
+    out.mkdir(parents=True, exist_ok=True)
+    for stub in ("cuda_runtime.h", "cache_hints.cuh"):
+        (out / stub).write_text("#pragma once\n")
+    tu = out / "segment_sum.cpp"
+    tu.write_text((HERE / "simt_common.cuh").read_text() + "\n"
+                  + _emulated((CSRC / "segment_sum.cu").read_text()))
+    lib = out / "libsegment_sum_emulated.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+                    "-Wno-unknown-pragmas", "-I", str(out), "-o", str(lib), str(tu)], check=True)
+    lib = ctypes.CDLL(str(lib))
+    lib.soccdpt_error_string.restype = ctypes.c_char_p
+    return {"segment_sum": lib}
+
+
+def segment_problem(B, N, C, layout, keys, seed=0):
+    """(lin (B*N,) int32, vals (B, N, C) in the layout named, num_slots)."""
+    rng = np.random.default_rng(seed)
+    cells = 997
+    S = B * cells
+    if keys == "runs":
+        lin = np.concatenate([np.repeat(rng.integers(0, cells, 64), rng.integers(1, 300, 64))[:N]
+                              + b * cells for b in range(B)])
+        lin[rng.random(B * N) < 0.1] = -1
+    elif keys == "one":
+        lin = np.full(B * N, 7)
+    elif keys == "dropped":
+        lin = np.where(rng.random(B * N) < 0.5, -3, S + 5)
+    else:
+        lin = rng.integers(-50, S + 50, B * N)
+    vals = rng.uniform(size=(B, N, C)).astype(np.float32)
+    vals.reshape(-1, C)[(lin < 0) | (lin >= S)] = np.nan  # a dropped row is never read
+    vals = torch.from_numpy(vals)
+    if layout == "channels":
+        vals = vals.transpose(1, 2).contiguous().transpose(1, 2)
+    elif layout == "strided":
+        vals = torch.stack([vals, torch.zeros_like(vals)], 2).reshape(B, 2 * N, C)[:, ::2]
+    return torch.from_numpy(lin.astype(np.int32)), vals, S
+
+
+def run_segment(B, N, C, layout, keys):
+    lin, vals, S = segment_problem(B, N, C, layout, keys)
+    print(f"K2 B={B} N={N} C={C} {layout} {keys}")
+    want = ss.segment_sum_plain(lin, vals, S)
+    rtol = 1e-4 if keys == "one" else 1e-5
+    ok = _close("sum", ss._launch(lin, vals, S), want, 1e-5, rtol)
+    cot = torch.from_numpy(np.random.default_rng(1).standard_normal((S, C)).astype(np.float32))
+    got = ss._launch_backward(lin, cot)
+    same = torch.equal(got, ss.segment_sum_backward_plain(lin, cot))
+    print(f"  gradient bit for bit: {same}")
+    return ok and same
+
+
 def _close(name, got, want, atol, rtol):
     diff = (got.float() - want.float()).abs()
     ok = bool(torch.isfinite(got.float()).all()) and bool(
@@ -226,14 +309,14 @@ def run_head(B, H, W, Ci, Cm):
 
 
 RUNS = {"global": (run_global, GLOBAL_CASES), "window": (run_window, WINDOW_CASES),
-        "head": (run_head, HEAD_CASES)}
+        "head": (run_head, HEAD_CASES), "segment": (run_segment, SEGMENT_CASES)}
 
 
 def main():
     routes = sys.argv[1:] or list(RUNS)
     libs = {}
     for route in routes:
-        libs.update(build(route))
+        libs.update(build_segment() if route == "segment" else build(route))
     _build.load = libs.__getitem__
     torch.cuda.current_stream = lambda device=None: types.SimpleNamespace(cuda_stream=0)
     ok = True

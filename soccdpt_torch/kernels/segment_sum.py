@@ -1,4 +1,5 @@
-"""K2: dense segment-sum, the occupancy voxelizer's accumulation.
+"""K2: dense segment-sum, the occupancy voxelizer's accumulation, and its
+gradient.
 
 Replaces the TPU kernel of ``soccdpt_tpu/ops/sorted_segment_sum.py``
 (``sorted_segment_sum_tpu``: ``_kernel`` with its on-device ``_schedule``,
@@ -7,25 +8,32 @@ used by ``segment_sum_sorted_pallas`` and
 ``csrc/segment_sum.cu``.
 
 Contract: ``out[s, c] = sum over rows n with lin[n] == s of vals[n, c]``
-into ``(S, C)`` f32; rows with ``lin >= S`` or ``lin < 0`` are dropped.
+into ``(S, C)`` f32; rows with ``lin >= S`` or ``lin < 0`` are dropped
+and their values never read. ``vals`` is ``(N, C)`` or ``(B, N, C)`` at
+any strides, with ``lin`` holding its B*N keys in row order: the served
+voxelizer hands over a channel-major view of the segmentation, read in
+place.
 
 Bound on the H100: memory. Per 1080p frame into the 256x256x32 grid the
-kernel reads 2,073,600 int32 keys and f32 (N, 3) values (33 MB) and
-writes the 2,097,152 x 3 f32 grid (25 MB): about 17 us at 3.35 TB/s.
+kernel reads 2,073,600 int32 keys and the kept rows' f32 values and
+writes the 2,097,152 x 3 f32 grid (25 MB): about 16 us at 3.35 TB/s.
 The TPU's sort and one-hot matmuls worked around its serial scatter;
-here a direct f32 atomicAdd per (row, channel) into a zeroed output
-reads each input once and touches each cell in L2, with no sort.
-Atomics change the add order, so results match a serial sum to f32
-rounding, not to bits.
+here a memset zeroes the grid and one kernel scatters into it: a warp
+sums the runs of equal slots among 128 consecutive rows in registers
+(the rows come in pixel order, and neighbouring pixels share voxels) and
+sends one f32 reduction a run and channel into the L2. Atomics change
+the add order, so results match a serial sum to f32 rounding, not to
+bits. Two CUDA launches a call: the memset and the kernel.
 
-``segment_sum`` launches the kernel for CUDA tensors and runs
-``segment_sum_plain`` for CPU tensors; ``segment_sum.launches`` counts
-kernel launches.
+Gradient. ``segment_sum`` is an ``autograd.Function``: the gradient of
+``vals`` gathers the cotangent at each kept row's slot and is 0 on a
+dropped row (JAX's ``_accumulate_sort_bwd``); ``lin`` has none. On CUDA
+the gather is a kernel of its own (``segment_sum_backward``); the forward
+saves ``lin`` only.
 
-Gradient. The kernel has no backward yet (a gather of the cotangent at
-each row's slot, which comes with occupancy training). Until then a call
-on CUDA values that need a gradient raises ``NotImplementedError``
-(:func:`check_no_grad`) rather than cut the graph without a word.
+``segment_sum`` and ``segment_sum_backward`` launch their kernels for
+CUDA tensors and run ``segment_sum_plain`` / ``segment_sum_backward_plain``
+for CPU tensors; their ``launches`` attributes count kernel launches.
 """
 from __future__ import annotations
 
@@ -37,57 +45,115 @@ from . import _build
 
 
 def segment_sum_plain(lin: torch.Tensor, vals: torch.Tensor, num_slots: int) -> torch.Tensor:
-    """The plain PyTorch version: ``index_add_`` over the kept rows."""
+    """The plain PyTorch version: ``index_add_`` over the kept rows (f32,
+    f64 for f64 values)."""
+    lin, vals = lin.reshape(-1), vals.reshape(-1, vals.shape[-1])
     keep = (lin >= 0) & (lin < num_slots)
-    out = torch.zeros((num_slots, vals.shape[-1]), dtype=torch.float32, device=vals.device)
-    return out.index_add_(0, lin[keep].long(), vals[keep].float())
+    dtype = torch.promote_types(vals.dtype, torch.float32)
+    out = torch.zeros((num_slots, vals.shape[-1]), dtype=dtype, device=vals.device)
+    return out.index_add_(0, lin[keep].long(), vals[keep].to(dtype))
 
 
-def check_no_grad(vals: torch.Tensor) -> None:
-    """Raise when ``vals`` would need a gradient through the kernel."""
-    if torch.is_grad_enabled() and vals.requires_grad:
-        raise NotImplementedError(
-            "the segment-sum kernel has no backward yet: call it under "
-            "torch.no_grad() or on detached values (its gradient comes with "
-            "occupancy training)"
-        )
+def segment_sum_backward_plain(lin: torch.Tensor, cot: torch.Tensor) -> torch.Tensor:
+    """The plain gradient: ``(lin.numel(), C)``, the cotangent row of each
+    kept row's slot (``index_select``), 0 on a dropped row."""
+    lin = lin.reshape(-1)
+    keep = (lin >= 0) & (lin < cot.shape[0])
+    if cot.shape[0] == 0:
+        return cot.new_zeros((lin.numel(), cot.shape[1]))
+    taken = cot.index_select(0, torch.where(keep, lin, 0).long())
+    return torch.where(keep[:, None], taken, 0.0)
+
+
+def _keys(lin: torch.Tensor, rows: int, device: torch.device) -> torch.Tensor:
+    if lin.numel() != rows or lin.device != device:
+        raise ValueError(f"segment sum takes {rows} keys on {device}, got "
+                         f"{tuple(lin.shape)} on {lin.device}")
+    return lin.reshape(-1).to(torch.int32).contiguous()
 
 
 def _launch(lin: torch.Tensor, vals: torch.Tensor, num_slots: int) -> torch.Tensor:
-    check_no_grad(vals)
-    if lin.dim() != 1 or vals.dim() != 2 or vals.shape[0] != lin.shape[0]:
-        raise ValueError(
-            f"segment sum takes lin (N,) and vals (N, C), got {tuple(lin.shape)} "
-            f"and {tuple(vals.shape)}"
-        )
-    if lin.device != vals.device:
-        raise ValueError("lin and vals must be on one device")
-    lin = lin.to(torch.int32).contiguous()
-    vals = vals.to(torch.float32).contiguous()
-    n_rows, C = vals.shape
-    out = torch.zeros((num_slots, C), dtype=torch.float32, device=vals.device)
+    if vals.dim() not in (2, 3) or vals.dtype != torch.float32:
+        raise ValueError(f"segment sum takes f32 vals (N, C) or (B, N, C), got "
+                         f"{vals.dtype} {tuple(vals.shape)}")
+    v = vals if vals.dim() == 3 else vals.unsqueeze(0)
+    B, N, C = v.shape
+    if B * N >= 2**31 or not 0 <= num_slots < 2**31:
+        raise ValueError(f"segment sum takes fewer than 2^31 rows and slots, got {B * N} "
+                         f"rows and {num_slots} slots")
+    lin = _keys(lin, B * N, vals.device)
+    out = torch.empty((num_slots, C), dtype=torch.float32, device=vals.device)
     lib = _build.load("segment_sum")
     fn = lib.soccdpt_segment_sum
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_longlong, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 3
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    rc = fn(
-        lin.data_ptr(), vals.data_ptr(), out.data_ptr(), n_rows, C, num_slots,
-        torch.cuda.current_stream(vals.device).cuda_stream,
-    )
+    rc = fn(lin.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, C, *v.stride(), num_slots,
+            torch.cuda.current_stream(vals.device).cuda_stream)
     _build.check(lib, rc, "segment sum kernel")
     segment_sum.launches += 1
     return out
 
 
+def _launch_backward(lin: torch.Tensor, cot: torch.Tensor) -> torch.Tensor:
+    if cot.dim() != 2:
+        raise ValueError(f"the segment-sum gradient takes a (S, C) cotangent, got "
+                         f"{tuple(cot.shape)}")
+    cot = cot.float().contiguous()
+    lin = _keys(lin, lin.numel(), cot.device)
+    S, C = cot.shape
+    grad = torch.empty((lin.numel(), C), dtype=torch.float32, device=cot.device)
+    lib = _build.load("segment_sum")
+    fn = lib.soccdpt_segment_sum_backward
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(lin.data_ptr(), cot.data_ptr(), grad.data_ptr(), lin.numel(), C, S,
+            torch.cuda.current_stream(cot.device).cuda_stream)
+    _build.check(lib, rc, "segment sum backward kernel")
+    segment_sum_backward.launches += 1
+    return grad
+
+
+def segment_sum_backward(lin: torch.Tensor, cot: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``vals`` from the (S, C) cotangent, ``(lin.numel(),
+    C)``: the gather kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if cot.device.type == "cuda":
+        return _launch_backward(lin, cot)
+    if cot.device.type != "cpu":
+        raise ValueError(f"segment sum runs on cuda or cpu, not {cot.device}")
+    return segment_sum_backward_plain(lin, cot)
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lin, vals, num_slots):
+        ctx.save_for_backward(lin)
+        ctx.vals_shape = vals.shape
+        if vals.device.type == "cuda":
+            return _launch(lin, vals, num_slots)
+        return segment_sum_plain(lin, vals, num_slots)
+
+    @staticmethod
+    def backward(ctx, cot):
+        (lin,) = ctx.saved_tensors
+        grad = segment_sum_backward(lin, cot).reshape(ctx.vals_shape)
+        return None, grad, None
+
+
 def segment_sum(lin: torch.Tensor, vals: torch.Tensor, num_slots: int) -> torch.Tensor:
-    """(num_slots, C) f32 sums of ``vals`` rows into slot ``lin``: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    """(num_slots, C) sums of ``vals`` rows into slot ``lin``: the CUDA
+    kernel for CUDA tensors (f32), the plain version for CPU tensors.
+    Differentiable with respect to ``vals``."""
     if vals.device.type == "cuda":
-        return _launch(lin, vals, num_slots)
-    if vals.device.type != "cpu":
+        vals = vals.float()  # cast outside the Function: the gradient keeps vals' dtype
+    elif vals.device.type == "cpu":
+        vals = vals.to(torch.promote_types(vals.dtype, torch.float32))
+    else:
         raise ValueError(f"segment sum runs on cuda or cpu, not {vals.device}")
-    return segment_sum_plain(lin, vals, num_slots)
+    return _SegmentSum.apply(lin, vals, num_slots)
 
 
 segment_sum.launches = 0
+segment_sum_backward.launches = 0

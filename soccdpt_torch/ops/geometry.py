@@ -72,7 +72,9 @@ def occupancy_slots(
 ):
     """The segment-sum problem of a voxelization: ``(slot, vals, num_slots)``
     with ``slot`` (B*N,) int32 in [0, B*cells) or -1 for a dropped row and
-    ``vals`` (B*N, C) f32. Slots fold the batch in: ``b * cells + cell``."""
+    ``vals`` (B, N, C) f32: ``semantics`` itself where it is f32 (a view
+    K2 reads in place at its strides), else a cast of it. Slots fold the
+    batch in: ``b * cells + cell``."""
     B, N, _ = points.shape
     gx, gy, gz = occ.grid_size
     shape_m = _const(tuple(occ.occupancy_shape), points.device, points.dtype)
@@ -93,13 +95,16 @@ def occupancy_slots(
     batch_off = torch.arange(B, dtype=torch.int32, device=points.device)[:, None] * num_cells
     slot = torch.where(valid, lin + batch_off, torch.full_like(lin, -1))
 
+    if tuple(semantics.shape) != (B, N, num_classes):
+        raise ValueError(f"semantics {tuple(semantics.shape)} do not fit points "
+                         f"{tuple(points.shape)} and {num_classes} classes")
     if mode == "prob":
-        vals = semantics
+        vals = semantics.float()
     elif mode == "count":
         vals = (semantics > threshold).to(torch.float32)
     else:
         raise ValueError(mode)
-    return slot.reshape(-1), vals.reshape(B * N, num_classes).float(), B * num_cells
+    return slot.reshape(-1), vals, B * num_cells
 
 
 def points_to_occupancy_grid(

@@ -7,8 +7,8 @@
   backward cases of tests/test_global_attention.py plus a bf16 one;
 * K1's ``autograd.Function`` (forward the plain version here, backward a
   recompute through it) against ``jax.vjp`` of the window attention's
-  ``xla_reference``: dq, dk, dv, dtau and dB, with and without a mask;
-* K2's check that refuses a gradient.
+  ``xla_reference``: dq, dk, dv, dtau and dB, with and without a mask.
+(K2's gradient is in tests/test_torch_segment_sum_grad.py.)
 
 Inputs come from a numpy seed and go to both stacks. Tolerances:
 ``F32_TOL`` = 3e-5 (atol = rtol), the bound tests/test_global_attention.py
@@ -32,7 +32,6 @@ from soccdpt_torch.kernels.global_attention import (
     global_attention_backward_plain,
     global_attention_with_lse,
 )
-from soccdpt_torch.kernels.segment_sum import check_no_grad, segment_sum
 from soccdpt_torch.kernels.window_attention import window_attention
 
 torch.set_num_threads(2)  # the suite runs several worker processes side by side
@@ -192,22 +191,3 @@ def test_window_attention_without_gradients_is_the_bare_forward():
     out = window_attention(*targs)
     out.sum().backward()
     assert targs[3].grad is not None and targs[0].grad is None
-
-
-# --- K2 -------------------------------------------------------------------------
-
-
-def test_segment_sum_check_refuses_a_gradient():
-    """The kernel has no backward yet: its check raises instead of cutting
-    the graph. (The check runs only before a launch; on CPU tensors the
-    plain version is differentiable as it stands.)"""
-    vals = torch.ones(4, 3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        check_no_grad(vals)
-    check_no_grad(vals.detach())
-    with torch.no_grad():
-        check_no_grad(vals)
-    lin = torch.tensor([0, 1, 1, 5])
-    out = segment_sum(lin, vals, 3)
-    out.sum().backward()
-    np.testing.assert_array_equal(vals.grad.numpy(), [[1.0] * 3] * 3 + [[0.0] * 3])

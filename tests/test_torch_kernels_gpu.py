@@ -35,7 +35,7 @@ Tolerances, with their reasons:
 * K2: rtol/atol 1e-5, the bound of tests/test_sorted_segment_sum.py (f32
   adds in an order the atomics choose); rtol 1e-4 where every row lands
   in one cell, since thousands of adds into one accumulator drift by a
-  few ulps of the total;
+  few ulps of the total. Its backward is a gather: the same bits;
 * K3, K4, K5 f32: atol 2e-4, 3e-4 and atol = rtol = 2e-5, the bounds
   tests/test_fused_{rcu,fusion,head}.py hold the Pallas kernels to, with
   TF32 off for the plain version's cuDNN convolutions; bf16: atol = rtol =
@@ -61,7 +61,11 @@ from soccdpt_torch.kernels.global_attention import (
 from soccdpt_torch.kernels.fused_fusion import fused_rcu_tail, fused_rcu_tail_plain
 from soccdpt_torch.kernels.fused_head import fused_head_tail, fused_head_tail_plain
 from soccdpt_torch.kernels.fused_rcu import fused_rcu, fused_rcu_plain
-from soccdpt_torch.kernels.segment_sum import segment_sum
+from soccdpt_torch.kernels.segment_sum import (
+    segment_sum,
+    segment_sum_backward,
+    segment_sum_backward_plain,
+)
 from soccdpt_torch.kernels.window_attention import window_attention, window_attention_plain
 
 pytestmark = pytest.mark.gpu
@@ -182,24 +186,53 @@ def _oracle(lin, vals, S):
     return out
 
 
-@pytest.mark.parametrize("case", ["random", "one_cell", "dropped", "empty"])
-def test_segment_sum_kernel_matches_oracle(card, case):
+def _segment_problem(case, card):
+    """(lin, vals on the card in the case's layout, vals as numpy (B*N, C), S)."""
     rng = np.random.default_rng(11)
-    N, S, C = {"random": (200_000, 50_000, 3), "one_cell": (4096, 64, 3),
-               "dropped": (1000, 64, 2), "empty": (0, 64, 3)}[case]
-    lin = rng.integers(-100, S + 100, size=(N,)).astype(np.int32)
-    vals = rng.uniform(size=(N, C)).astype(np.float32)
+    B, N, S, C = {"random": (1, 200_000, 50_000, 3), "one_cell": (1, 4096, 64, 3),
+                  "dropped": (1, 1000, 64, 2), "empty": (1, 0, 64, 3),
+                  "channel_major": (2, 100_000, 100_000, 3), "strided": (1, 50_001, 5_000, 5),
+                  "batch_folded": (2, 65_537, 2 * 4_096, 3),
+                  "long_runs": (2, 100_000, 2 * 50_000, 3)}[case]
+    lin = rng.integers(-100, S + 100, size=(B * N,)).astype(np.int32)
+    if case == "batch_folded":  # b * cells + cell, a ragged last tile in each image
+        lin = (rng.integers(0, S // B, (B, N)) + np.arange(B)[:, None] * (S // B)).reshape(-1)
+        lin[::7] = S + 1
+    if case == "long_runs":  # image order: runs of equal slots up to 2,000 rows
+        lin = np.repeat(rng.integers(0, S, 500), rng.integers(1, 2000, 500))[:B * N]
+        lin[rng.random(B * N) < 0.05] = -1
+    lin = lin.astype(np.int32)
+    vals = rng.uniform(size=(B * N, C)).astype(np.float32)
     if case == "one_cell":
         lin[:] = 7
     if case == "dropped":
         lin[:] = S + 3
-        vals[::2] = np.nan  # a dropped row's values are never read
+    vals[(lin < 0) | (lin >= S)] = np.nan  # a dropped row's values are never read
+    dev = torch.from_numpy(vals).to(card)
+    if case in ("channel_major", "long_runs"):  # the served voxelizer's (B, N, C) view
+        dev = dev.reshape(B, N, C).transpose(1, 2).contiguous().transpose(1, 2)
+    if case == "strided":  # every other row of a larger tensor
+        dev = torch.stack([dev, torch.zeros_like(dev)], 1).reshape(2 * N, C)[::2]
+    return torch.from_numpy(lin).to(card), dev, vals, S
+
+
+SEGMENT_CASES = ["random", "one_cell", "dropped", "empty", "channel_major", "strided",
+                 "batch_folded", "long_runs"]
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segment_sum_kernel_matches_oracle(card, case):
+    lin, vals, host, S = _segment_problem(case, card)
     before = segment_sum.launches
-    got = segment_sum(torch.from_numpy(lin).to(card), torch.from_numpy(vals).to(card), S)
+    got = segment_sum(lin, vals, S)
     torch.cuda.synchronize()
     assert segment_sum.launches == before + 1
     rtol = 1e-4 if case == "one_cell" else 1e-5
-    np.testing.assert_allclose(got.cpu().numpy(), _oracle(lin, vals, S), rtol=rtol, atol=1e-5)
+    np.testing.assert_allclose(got.cpu().numpy(), _oracle(lin.cpu().numpy(), host, S),
+                               rtol=rtol, atol=1e-5)
+    # CUDA launches a call: the memset and the kernel
+    if case == "random":
+        assert _launches(lambda: segment_sum(lin, vals, S)) == 2
 
 
 def _global_inputs(B, H, T, d, bias_dtype, dtype, dev, seed=0):
@@ -473,13 +506,43 @@ def test_window_attention_function_passes_a_finite_difference_check(card, nW):
     assert window_attention.launches == before + 3  # forwards only: the backward launches none
 
 
-def test_segment_sum_kernel_refuses_values_that_need_a_gradient(card):
-    lin = torch.zeros(8, dtype=torch.int32, device=card)
-    vals = torch.ones(8, 3, device=card, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        segment_sum(lin, vals, 4)
-    with torch.no_grad():
-        assert float(segment_sum(lin, vals, 4)[0, 0]) == 8.0
+@pytest.mark.parametrize("case", ["random", "strided", "batch_folded", "dropped"])
+def test_segment_sum_backward_is_the_plain_gather(card, case):
+    """K2's gradient: the gather kernel, bit for bit the plain version,
+    zeros on dropped rows, shaped like the values; one launch."""
+    lin, vals, _, S = _segment_problem(case, card)
+    vals = vals.clone().nan_to_num_().requires_grad_()
+    cot = torch.randn(S, vals.shape[-1], device=card)
+    before = segment_sum_backward.launches
+    segment_sum(lin, vals, S).backward(cot)
+    torch.cuda.synchronize()
+    assert segment_sum_backward.launches == before + 1
+    want = segment_sum_backward_plain(lin, cot)
+    assert vals.grad.shape == vals.shape
+    assert torch.equal(vals.grad.reshape(-1, vals.shape[-1]), want)
+    dropped = (lin < 0) | (lin >= S)
+    assert not vals.grad.reshape(-1, vals.shape[-1])[dropped].any()
+    assert _launches(lambda: segment_sum_backward(lin, cot)) == 1
+
+
+def test_segment_sum_on_the_card_never_reaches_the_plain_versions(card, monkeypatch):
+    from soccdpt_torch.kernels import segment_sum as ss
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA call reached a plain version")
+
+    for name in ("segment_sum_plain", "segment_sum_backward_plain"):
+        monkeypatch.setattr(ss, name, refuse)
+    for name in ("index_add_", "index_select"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    lin, vals, host, S = _segment_problem("channel_major", card)
+    vals = vals.clone().nan_to_num_().requires_grad_()
+    for _ in range(2):
+        out = ss.segment_sum(lin, vals, S)
+        out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    keep = (lin >= 0) & (lin < S)
+    assert torch.equal(vals.grad.reshape(-1, 3), 2.0 * keep[:, None].float().expand(-1, 3))
 
 
 # --- K3, K4, K5: the decoder convolutions ------------------------------------------
