@@ -54,7 +54,21 @@ Phases, each of which fails the run on any error:
    through the plain versions; five bf16 steps whose loss must stay
    finite and fall, with the launch counts read around every step; the
    median step time, the step's peak memory above what is allocated when
-   the peak is reset, and a device-time profile of one step.
+   the peak is reset, and a device-time profile of one step;
+6. occupancy training, through the data layer and
+   ``soccdpt_torch.cli.train_occupancy``: a BDD fixture tree of 2 x 4
+   frames at 1920x1080 written from seed 0; the host library (built with
+   g++) against its plain versions on one frame (voxelizer, PNG unfilter);
+   one sample's GT; the host time of a sample by part and the copy of a
+   batch; one f32 step, card against CPU (loss, every ``occupancy_conv``
+   gradient); the bf16 step with the 3-D head's pairwise-maximum pools
+   against ``max_pool3d`` (equal forward values, wall and device time,
+   launches); then the CLI's main path
+   on the flagship at full width (V3, 256x256x32x3 grid, batch 1, six bf16
+   steps, a base checkpoint with the depth head scaled as in phase 4):
+   K1 twelve times and K2 once a step and nothing else of the table, the
+   losses, the checkpoint, the val IoU against predicting every cell
+   occupied, the step time and a profile of one step.
 
 It prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -1094,11 +1108,23 @@ def tensor_core_proof(_build):
     return counts
 
 
+def device_events(prof):
+    """The profile's device operations (kernels, memsets, copies) by key,
+    without the GPU user annotations (``Optimizer.step#Adam.step``), whose
+    spans cover kernels that are counted on their own rows. Kernel names
+    may hold ``#`` (``{lambda()#3}``), so the annotations go by their flag
+    and by the optimizer's and the profiler's own prefixes."""
+    from torch.autograd import DeviceType
+
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)
+            and not ev.key.startswith(("Optimizer.", "ProfilerStep#"))]
+
+
 def cuda_launches(torch, fn):
     """(device operations (kernels, memsets, copies), device µs by operation)
     of one call of ``fn``, from a profile. The kernels' own launch counts
     come from ``graph_launches``: a profile may miss a launch."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1106,7 +1132,7 @@ def cuda_launches(torch, fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    rows = device_events(prof)
     return sum(ev.count for ev in rows), {ev.key[:80]: ev.device_time_total for ev in rows}
 
 
@@ -1478,7 +1504,6 @@ def phase_serving(torch, card, label):
     record["latency_bf16"] = latency
 
     # --- device time by kernel for one bf16 batch-1 occupancy request -------
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn = serve[True]
@@ -1491,8 +1516,7 @@ def phase_serving(torch, card, label):
         torch.cuda.synchronize()
     # device-side events only (kernels, memcpy, memset), so nothing is
     # counted twice through the operator that launched it
-    rows = [(ev.key, ev.device_time_total / 5.0, ev.count / 5.0)
-            for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    rows = [(ev.key, ev.device_time_total / 5.0, ev.count / 5.0) for ev in device_events(prof)]
     rows.sort(key=lambda r: -r[1])
     device_us = sum(us for _, us, _ in rows) * 5.0
     record["served_kernel_device_ms_b1_occ"] = {
@@ -1754,14 +1778,12 @@ def phase_training(torch, card, label):
                             "allocated_at_reset_gb": at_reset / 1e9,
                             "peak_above_reset_gb":
                                 (torch.cuda.max_memory_allocated() - at_reset) / 1e9}
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.train_step(state, device_batch, gen)
         torch.cuda.synchronize()
-    rows = [(ev.key, ev.device_time_total, ev.count)
-            for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    rows = [(ev.key, ev.device_time_total, ev.count) for ev in device_events(prof)]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(us for _, us, _ in rows) / 1e3
     marks = {"window_attention": "window_attention_kernel",
@@ -1790,6 +1812,440 @@ def phase_training(torch, card, label):
         f"share {device_ms / resident:.3f} of the step with the batch on the card; by kernel "
         + ", ".join(f"{n} {ms:.3f} ms ({ms / device_ms:.1%})" for n, ms in by_kernel.items())
         + "; top device time:")
+    for k, us, c in rows[:12]:
+        log(f"  {us:9.1f} us  x{c:5d}  {k[:90]}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Occupancy training: the data layer and soccdpt_torch.cli.train_occupancy
+# ---------------------------------------------------------------------------
+
+OCC_FIXTURE = dict(frames_per_seq=4, width=1920, height=1080, seed=0)
+OCC_ARGS = ["-t", "dpt_swin2_tiny_256", "-v", "3", "--max_steps", "6", "--epochs", "1",
+            "--val_percent", "0.25", "--pos_weight", "auto"]
+OCC_STEPS = 6
+# the table's kernels in one step: the trunk's 12 window attentions and the
+# model's voxelizer, forward only (only the 3-D head trains), nothing else
+OCC_PER_STEP = {"window_attention": 12, "segment_sum": 1, "segment_sum_backward": 0,
+                "global_attention": 0, "global_attention_backward": 0,
+                "fused_rcu": 0, "fused_rcu_tail": 0, "fused_head_tail": 0}
+OCC_PROFILED_STEP = 3  # the step of the run (0-based) whose device time is profiled
+OCC_HOST_SAMPLES = 4  # samples timed part by part on the host
+OCC_COPY_BATCHES = 3  # batches the copy and the pool comparison cycle through
+OCC_POOL_ROUNDS = 4  # alternating rounds of the pool comparison
+
+
+def occ_counters():
+    from soccdpt_torch.kernels import fused_fusion, fused_head, fused_rcu
+    from soccdpt_torch.kernels import global_attention as ga
+    from soccdpt_torch.kernels import segment_sum as ss
+    from soccdpt_torch.kernels import window_attention as wa
+
+    return {"window_attention": wa.window_attention, "segment_sum": ss.segment_sum,
+            "segment_sum_backward": ss.segment_sum_backward,
+            "global_attention": ga.global_attention,
+            "global_attention_backward": ga.global_attention_backward,
+            "fused_rcu": fused_rcu.fused_rcu, "fused_rcu_tail": fused_fusion.fused_rcu_tail,
+            "fused_head_tail": fused_head.fused_head_tail}
+
+
+def occ_base_checkpoint(torch, camera, path):
+    """The base model the run loads (``-l``): the flagship's weights from
+    numpy seed 0 with the depth head's last conv scaled, as the served
+    phases scale it, so that inverse depth sits in a band where depth =
+    1/inv is well conditioned. From the seed alone the random head's
+    inverse depth lies near zero: depths of 1e7 m, points the card and the
+    CPU place apart by 1e6 m, a grid of 61 cells of which a fifth of the
+    mass differs between them (PERF.md, the occupancy phase)."""
+    from soccdpt_torch.core.checkpoint import save_checkpoint
+    from soccdpt_torch.core.config import ModelConfig
+    from soccdpt_torch.models.soccdpt import build_model
+
+    base = build_model(ModelConfig(model_type="dpt_swin2_tiny_256", version=3, compute_occ=True,
+                                   occupancy_head=True, camera=camera), device="cuda", seed=0)
+    with torch.no_grad():
+        base.depth_net.head.conv3.weight.mul_(0.01)
+        base.depth_net.head.conv3.bias.fill_(0.3)
+    save_checkpoint(path, {"params": base.state_dict()})
+    return base.state_dict()
+
+
+def occ_model(torch, tocc, camera, weights, image, dtype):
+    """The run's model outside the CLI: the base weights, the grid
+    calibrated on ``image`` as ``--calibrate_grid auto`` does it, only
+    ``occupancy_conv`` trainable."""
+    from soccdpt_torch.core.config import ModelConfig
+    from soccdpt_torch.models.soccdpt import build_model
+    from soccdpt_torch.train.patchwise import select_trainable
+
+    mcfg = ModelConfig(model_type="dpt_swin2_tiny_256", version=3, compute_occ=True,
+                       occupancy_head=True, compute_dtype=dtype, camera=camera)
+    model = build_model(mcfg, device="cuda", seed=0)
+    model.load_state_dict(weights)
+    occ, info = tocc.calibrate_grid(tocc.probe_cloud(model, [image]), mcfg.occupancy)
+    model.cfg = dataclasses.replace(mcfg, occupancy=occ)
+    select_trainable(model, tocc.occupancy_mask(model))
+    return model, info
+
+
+def occ_host_checks(native, bdd, io, dataset, record):
+    """The host library against its plain versions on one 1080p frame, and
+    one sample's GT."""
+    if not native.AVAILABLE:
+        fail(f"the host library did not build: {native.build_error()}")
+    seq, proc = dataset.datasets[0].seq, dataset.datasets[0].proc
+    frame = seq[0]
+    sem = bdd.rgb_seg_to_class(np.ascontiguousarray(frame["seg_frame"][..., ::-1])).reshape(-1)
+    points = proc.process_frame(frame)["points"].astype(np.float32)
+    args = (points, sem, tuple(proc.occ.occupancy_shape), tuple(proc.occ.grid_size),
+            bdd.NUM_CLASSES)
+    t0 = time.perf_counter()
+    grid_lib = native.voxelize_points(*args)
+    t1 = time.perf_counter()
+    grid_plain = native.voxelize_points_plain(*args)
+    t2 = time.perf_counter()
+    if not np.array_equal(grid_lib, grid_plain):
+        fail(f"occ: the C++ voxelizer differs from its plain version in "
+             f"{int((grid_lib != grid_plain).sum())} cells")
+    h, w = frame["rgb_frame"].shape[:2]
+    png = io.encode_png(frame["rgb_frame"][..., ::-1], filter_type=[r % 5 for r in range(h)])
+    (_, _, _, ch), raw = io.inflate_png(png)
+    t3 = time.perf_counter()
+    rows_lib = native.png_unfilter(raw, h, w * ch, ch)
+    t4 = time.perf_counter()
+    rows_plain = native.png_unfilter_plain(raw, h, w * ch, ch)
+    t5 = time.perf_counter()
+    if not np.array_equal(rows_lib, rows_plain):
+        fail("occ: the C++ PNG unfilter differs from its plain version")
+    sample = dataset[0]
+    occupied = int((sample["occupancy_grid"] > 0.5).sum())
+    record["host_library"] = {
+        "path": native.load()._name, "points": len(points),
+        "voxelize_ms": (t1 - t0) * 1e3, "voxelize_plain_ms": (t2 - t1) * 1e3,
+        "unfilter_ms": (t4 - t3) * 1e3, "unfilter_plain_ms": (t5 - t4) * 1e3,
+        "gt_occupied_cells_sample0": occupied}
+    log(f"occ: host library {native.load()._name}; on frame 0 the C++ voxelizer equals its "
+        f"plain version ({len(points)} points, {(t1 - t0) * 1e3:.1f} ms against "
+        f"{(t2 - t1) * 1e3:.1f}), the C++ PNG unfilter equals its plain version on the frame "
+        f"re-encoded with all five filters ({(t4 - t3) * 1e3:.1f} ms against "
+        f"{(t5 - t4) * 1e3:.0f}); sample 0's GT grid holds {occupied} occupied cells of "
+        f"{sample['occupancy_grid'].size}")
+    if occupied == 0:
+        fail("occ: the GT grid of sample 0 is empty")
+
+
+def occ_host_times(io, dataset, transform, record):
+    """Host milliseconds per sample: the three PNG decodes of a frame, the GT
+    (unprojection and voxelization), the transform to the net input."""
+    seq, proc = dataset.datasets[0].seq, dataset.datasets[0].proc
+    size = dataset.datasets[0].target_size
+    parts = {"png_decode_ms": [], "gt_voxelization_ms": [], "transform_ms": []}
+    for i in range(OCC_HOST_SAMPLES):
+        t0 = time.perf_counter()
+        frame = seq[i]
+        t1 = time.perf_counter()
+        out = proc.process_frame(frame)
+        t2 = time.perf_counter()
+        rgb = io.resize(out["rgb_frame"], size)
+        transform({"image": rgb.astype(np.float32)})
+        t3 = time.perf_counter()
+        for key, ms in zip(parts, ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3)):
+            parts[key].append(ms)
+    t0 = time.perf_counter()
+    for i in range(OCC_HOST_SAMPLES):
+        dataset[i]
+    whole = (time.perf_counter() - t0) * 1e3 / OCC_HOST_SAMPLES
+    record["host_ms_per_sample"] = {k: float(np.median(v)) for k, v in parts.items()}
+    record["host_ms_per_sample"]["whole_sample_ms"] = whole
+    record["host_ms_per_sample_all"] = parts
+    log("occ: host time per 1080p sample (median of "
+        f"{OCC_HOST_SAMPLES}): " + ", ".join(f"{k[:-3]} {v:.1f} ms"
+                                             for k, v in record["host_ms_per_sample"].items()))
+
+
+def occ_step_parity(torch, tocc, loader, train_set, camera, weights, record):
+    """One f32 step on one batch, card against CPU, TF32, dropout and
+    stochastic depth off: the loss and every occupancy_conv gradient."""
+    from soccdpt_torch.weights import named_flax_params
+
+    set_tf32(torch, False)
+    batch = loader.collate([train_set[0]])
+    pos_weight, _ = tocc.auto_pos_weight(batch["occupancy_grid"][0])
+    model, calib = occ_model(torch, tocc, camera, weights, batch["image"][0], "float32")
+    for mod in model.modules():
+        if hasattr(mod, "dropout_rate"):
+            mod.dropout_rate = 0.0
+        if hasattr(mod, "drop_path_rates"):
+            mod.drop_path_rates = [0.0] * len(mod.drop_path_rates)
+    cpu_model = copy.deepcopy(model).cpu()
+    losses = {}
+    for label, dev, m in (("card", "cuda", model), ("cpu", "cpu", cpu_model)):
+        opt = torch.optim.Adam(m.occupancy_conv.parameters(), lr=1e-4)
+        t = {k: torch.from_numpy(batch[k]).to(dev) for k in ("image", "occupancy_grid", "mask_occ")}
+        t0 = time.perf_counter()
+        losses[label] = float(tocc.occupancy_step(m, opt, t["image"], t["occupancy_grid"],
+                                                  t["mask_occ"], pos_weight))
+        losses[label + "_seconds"] = time.perf_counter() - t0
+    loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    leaves = []
+    for (path, p), (_, pc) in zip(named_flax_params(model), named_flax_params(cpu_model)):
+        if (p.grad is None) != (pc.grad is None):
+            fail(f"occ: {path} has a gradient on one device only")
+        if p.grad is not None:
+            ref = float(pc.grad.norm())
+            leaves.append((path, float((p.grad.cpu() - pc.grad).norm()) / ref, ref))
+    worst = max(leaves, key=lambda x: (not x[1] <= TRAIN_GRAD_REL_LIMIT, x[1]))
+    record["parity_f32"] = {"loss_card": losses["card"], "loss_cpu": losses["cpu"],
+                            "loss_rel_err": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+                            "leaves": {p: e for p, e, _ in leaves}, "worst_leaf": worst[0],
+                            "worst_leaf_rel_err": worst[1], "grad_rel_limit": TRAIN_GRAD_REL_LIMIT,
+                            "pos_weight": pos_weight, "cpu_seconds": losses["cpu_seconds"],
+                            "calibration": calib}
+    log(f"occ f32 step, card vs CPU: loss {losses['card']:.6f} vs {losses['cpu']:.6f} (rel "
+        f"{loss_rel:.3g}, limit {TRAIN_LOSS_RTOL}); {len(leaves)} occupancy_conv gradients, worst "
+        f"{worst[0]} at {worst[1]:.3g} of its norm (limit {TRAIN_GRAD_REL_LIMIT}); CPU step "
+        f"{losses['cpu_seconds']:.1f} s; the grid calibrated to {calib.get('in_bounds_after', 0):.3f}"
+        " of the probe's points in bounds")
+    if not (len(leaves) == 8 and all(ref > 0 for _, _, ref in leaves)):
+        fail(f"occ: expected 8 nonzero occupancy_conv gradients, got {leaves}")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and worst[1] <= TRAIN_GRAD_REL_LIMIT):
+        fail("occ: the card's f32 step left the CPU's")
+    set_tf32(torch, True)
+
+
+def occ_copy_and_pool_times(torch, tocc, loader, train_set, camera, weights, record):
+    """A batch's copy to the card by the CLI's plain ``.to()``; then the
+    bf16 step on batches already on the card with the 3-D head's pools as
+    pairwise maxima (the JAX package's tie split) and as ``max_pool3d``:
+    equal forward values, the step's wall time in alternating rounds, and
+    one profiled step of each (device time, CUDA launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from soccdpt_torch.models import heads
+
+    keys = ("image", "occupancy_grid", "mask_occ")
+    batches = [loader.collate([train_set[i]]) for i in range(OCC_COPY_BATCHES)]
+    nbytes = sum(batches[0][k].nbytes for k in keys)
+    copy_ms = []
+    for b in batches * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = {k: torch.from_numpy(b[k]).to("cuda") for k in keys}
+        torch.cuda.synchronize()
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+    record["copy"] = {"batch_bytes": nbytes, "to_ms": copy_ms,
+                      "median_to_ms": float(np.median(copy_ms))}
+    log(f"occ: copy of a {nbytes / 1e6:.1f} MB batch (image, grid, mask) by .to(): "
+        f"{np.median(copy_ms):.2f} ms median, blocking ({[round(x, 2) for x in copy_ms]})")
+    del on_card
+
+    orig_pool = heads._max_pool_222  # both pools forced, whatever the head would pick
+    pools = {"pairwise": lambda x, split_ties: orig_pool(x, True),
+             "max_pool3d": lambda x, split_ties: orig_pool(x, False)}
+    g = torch.rand((1, 256, 256, 32, 3), device="cuda") * (torch.rand((1, 256, 256, 32, 1),
+                                                                      device="cuda") < 0.01)
+    model, _ = occ_model(torch, tocc, camera, weights, batches[0]["image"][0], "bfloat16")
+    out = {}
+    for name, forced in pools.items():
+        heads._max_pool_222 = forced
+        with torch.no_grad():
+            out[name] = model.occupancy_conv(g, torch.bfloat16)
+    heads._max_pool_222 = orig_pool
+    if not torch.equal(out["pairwise"], out["max_pool3d"]):
+        fail("occ: the pairwise pools' forward differs from max_pool3d's")
+    del out, g
+    opt = torch.optim.Adam(model.occupancy_conv.parameters(), lr=1e-4)
+    pos_weight, _ = tocc.auto_pos_weight(batches[0]["occupancy_grid"][0])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    on_card = [{k: torch.from_numpy(b[k]).to("cuda") for k in keys} for b in batches]
+
+    def step(b):
+        return tocc.occupancy_step(model, opt, b["image"], b["occupancy_grid"], b["mask_occ"],
+                                   pos_weight, gen)
+
+    wall = {name: [] for name in pools}
+    prof_rows = {}
+    try:
+        for name, forced in pools.items():  # warm-up and one profiled step each
+            heads._max_pool_222 = forced
+            float(step(on_card[0]))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                float(step(on_card[1]))
+                torch.cuda.synchronize()
+            prof_rows[name] = [(ev.key, ev.device_time_total, ev.count)
+                               for ev in device_events(prof)]
+        for r in range(OCC_POOL_ROUNDS):
+            for name in (list(pools) if r % 2 == 0 else list(pools)[::-1]):
+                heads._max_pool_222 = pools[name]
+                for b in on_card:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    float(step(b))
+                    torch.cuda.synchronize()
+                    wall[name].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        heads._max_pool_222 = orig_pool
+    summary = {}
+    for name in pools:
+        rows = prof_rows[name]
+        summary[name] = {"median_step_ms": float(np.median(wall[name])), "step_ms": wall[name],
+                         "device_ms": sum(us for _, us, _ in rows) / 1e3,
+                         "cuda_launches": sum(c for _, _, c in rows),
+                         "pool_rows": [(k[:100], us, c) for k, us, c in rows
+                                       if "maximum" in k.lower() or "pool" in k.lower()]}
+    record["pool_ab"] = summary
+    log("occ bf16 step, batch on the card, the head's pools A/B ("
+        f"{OCC_POOL_ROUNDS} alternating rounds of {len(on_card)} steps): " + "; ".join(
+            f"{n}: median {v['median_step_ms']:.2f} ms, device {v['device_ms']:.3f} ms in "
+            f"{v['cuda_launches']} launches" for n, v in summary.items()))
+    for name, v in summary.items():
+        for k, us, c in v["pool_rows"][:8]:
+            log(f"  {name}: {us:9.1f} us  x{c:4d}  {k[:80]}")
+    del model, opt, on_card
+    torch.cuda.empty_cache()
+
+
+def phase_occupancy(torch, card):
+    """The data layer and ``soccdpt_torch.cli.train_occupancy`` on the
+    flagship at full width: the fixture tree at 1920x1080, the host
+    library, GT and copy times, the f32 step against the CPU's, then the
+    CLI's main path (six bf16 steps, the checkpoint and the val IoU) with
+    the launch counts set to 0 just before it and read just after."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from soccdpt_torch import native
+    from soccdpt_torch.cli import train_occupancy as tocc
+    from soccdpt_torch.data import bdd, loader, synthetic
+    from soccdpt_torch.data import image_io as io
+    from soccdpt_torch.data.transforms import load_transforms
+
+    record = RECORD.setdefault("train_occ_swin", {"model_type": "dpt_swin2_tiny_256",
+                                                  "version": 3, "batch": 1,
+                                                  "grid": [256, 256, 32, 3],
+                                                  "frames": [1080, 1920], "args": OCC_ARGS})
+    counters = occ_counters()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="occ_") as tmp:
+        tree = os.path.join(tmp, "bdd")
+        t0 = time.perf_counter()
+        synthetic.make_bdd_fixture(tree, **OCC_FIXTURE)
+        record["fixture_seconds"] = time.perf_counter() - t0
+        log(f"occ: fixture tree, 2 sequences x {OCC_FIXTURE['frames_per_seq']} frames at "
+            f"1920x1080, written in {record['fixture_seconds']:.1f} s")
+        transform, _, _ = load_transforms("dpt_swin2_tiny_256")
+        dataset = bdd.get_bdd_dataset(bdd.BDDOccupancy, transform, tree)
+        camera = dataset.datasets[0].seq.camera
+        for d in dataset.datasets:
+            d.target_size = (camera.width, camera.height)
+        occ_host_checks(native, bdd, io, dataset, record)
+        occ_host_times(io, dataset, transform, record)
+        base = os.path.join(tmp, "base.pt")
+        weights = occ_base_checkpoint(torch, camera, base)
+        train_set, val_set = loader.split_train_val(dataset, 0.25, seed=0)
+        occ_step_parity(torch, tocc, loader, train_set, camera, weights, record)
+        torch.cuda.empty_cache()
+        occ_copy_and_pool_times(torch, tocc, loader, train_set, camera, weights, record)
+        del weights
+
+        # --- the main path: the CLI, counts from 0 -------------------------------
+        steps = []
+        orig = tocc.occupancy_step
+
+        def counted(*args, **kwargs):
+            before = {name: fn.launches for name, fn in counters.items()}
+            torch.cuda.synchronize()
+            profiled = len(steps) == OCC_PROFILED_STEP
+            t0 = time.perf_counter()
+            if profiled:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    loss = orig(*args, **kwargs)
+                    torch.cuda.synchronize()
+                record["profile_rows"] = [
+                    (ev.key, ev.device_time_total, ev.count) for ev in device_events(prof)]
+            else:
+                loss = orig(*args, **kwargs)
+                torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3, "profiled": profiled,
+                          "launches": {n: fn.launches - before[n] for n, fn in counters.items()}})
+            return loss
+
+        ckpts = os.path.join(tmp, "checkpoints")
+        for fn in counters.values():
+            fn.launches = 0
+        tocc.occupancy_step = counted
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            iou = tocc.main(OCC_ARGS + ["-b", tree, "-c", ckpts, "-l", base])
+            run_seconds = time.perf_counter() - t0
+        finally:
+            tocc.occupancy_step = orig
+            os.chdir(cwd)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        with open(os.path.join(tmp, "logs", "metrics_occupancy.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        ckpt = os.path.join(ckpts, "SOccDPT_Occupancy", "run", "checkpoint_epoch_1.pt")
+        ckpt_ok = os.path.isfile(ckpt) and os.path.getsize(ckpt) > 0
+        baseline = float(np.mean([(val_set[i]["occupancy_grid"] > 0.5).mean()
+                                  for i in range(len(val_set))]))
+
+    losses = [r["loss"] for r in logged]
+    for i, s in enumerate(steps):
+        if s["launches"] != OCC_PER_STEP:
+            fail(f"occ: step {i} launched {s['launches']}, expected {OCC_PER_STEP}")
+    if len(steps) != OCC_STEPS or len(losses) != OCC_STEPS:
+        fail(f"occ: the run took {len(steps)} steps and logged {len(losses)} losses, "
+             f"expected {OCC_STEPS}")
+    if not all(np.isfinite(losses)):
+        fail(f"occ: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"occ: the sixth loss is not below the first: {losses}")
+    if not ckpt_ok:
+        fail("occ: the run wrote no checkpoint")
+    if not np.isfinite(iou):
+        fail(f"occ: the val IoU is not finite: {iou}")
+    for name in OCC_PER_STEP:
+        if OCC_PER_STEP[name] == 0 and launches[name]:
+            fail(f"occ: {name} ran {launches[name]} times on the occupancy path")
+
+    rows = sorted(record.pop("profile_rows"), key=lambda r: -r[1])
+    device_ms = sum(us for _, us, _ in rows) / 1e3
+    step_ms = [s["ms"] for s in steps]
+    plain = [s["ms"] for s in steps[1:] if not s["profiled"]]
+    median = float(np.median(plain))
+    periods = [(b["time"] - a["time"]) * 1e3 for a, b in zip(logged, logged[1:])]
+    in_profile = {name: sum(c for k, _, c in rows if f"{name}_kernel" in k)
+                  for name in ("window_attention", "segment_sum")}
+    record.update({
+        "losses": losses, "step_ms": step_ms, "median_step_ms_from_step_2": median,
+        "loop_period_ms": periods, "median_loop_period_ms": float(np.median(periods[1:])),
+        "device_ms_per_step": device_ms, "cuda_launches_per_step": sum(c for _, _, c in rows),
+        "busy_share_of_step": device_ms / median,
+        "busy_share_of_loop_period": device_ms / float(np.median(periods[1:])),
+        "kernel_launches_in_profile": in_profile,
+        "launches_per_step": steps[0]["launches"], "launches_run": launches,
+        "val_iou": iou, "predict_all_iou": baseline, "run_seconds": run_seconds,
+        "profile_us_per_step": [{"name": k[:120], "device_us": us, "calls": c}
+                                for k, us, c in rows[:40]]})
+    log(f"occ run (python -m soccdpt_torch.cli.train_occupancy {' '.join(OCC_ARGS)} -l "
+        f"<base>), "
+        f"{run_seconds:.1f} s: losses {[round(x, 4) for x in losses]}; val IoU {iou:.6f} "
+        f"against {baseline:.6f} for predicting every cell occupied; checkpoint {ckpt_ok}; "
+        f"launches in the run {launches}")
+    log(f"occ bf16 step, batch 1, 1080p, 256x256x32x3 grid ({card}): median "
+        f"{median:.2f} ms from step 2 on (steps {[round(t, 1) for t in step_ms]}, step "
+        f"{OCC_PROFILED_STEP + 1} profiled), the loop's period median "
+        f"{record['median_loop_period_ms']:.1f} ms ({[round(t, 1) for t in periods]}); one "
+        f"profiled step: {device_ms:.3f} ms of device time in "
+        f"{record['cuda_launches_per_step']} launches, busy share {device_ms / median:.3f} of "
+        f"the step and {record['busy_share_of_loop_period']:.3f} of the loop's period; "
+        f"K1 {in_profile['window_attention']} and K2 {in_profile['segment_sum']} kernels in "
+        f"the profile; top device time:")
     for k, us, c in rows[:12]:
         log(f"  {us:9.1f} us  x{c:5d}  {k[:90]}")
     return launches
@@ -1858,6 +2314,9 @@ def main():
         with phase(name):
             path_launches[f"train_{label}"] = phase_training(torch, card, label)
         torch.cuda.empty_cache()
+    with phase("occupancy training dpt_swin2_tiny_256"):
+        path_launches["train_occ_swin"] = phase_occupancy(torch, card)
+    torch.cuda.empty_cache()
     del served_problem
     # each kernel's time inside a served request, from the profile of the
     # configuration whose attention it is (K2: the flagship's), and inside a

@@ -1,14 +1,18 @@
 """Configuration dataclasses: camera, occupancy grid, model and training.
 
 The port's own copy of ``soccdpt_tpu/core/config.py``'s ``CameraConfig``,
-``OccupancyConfig``, ``MODEL_TYPES``, ``ModelConfig`` and ``TrainConfig``,
-so the port never imports the JAX package. Field names and defaults are
+``OccupancyConfig``, ``GT_OCCUPANCY``, ``MODEL_TYPES``, ``ModelConfig`` and
+``TrainConfig``, so the port never imports the JAX package. Field names and defaults are
 the same, so a config built for one package reads the same in the other.
 """
 from __future__ import annotations
 
+import math
+import os
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
+
+_CAMERA_KEYS = ("fx", "fy", "cx", "cy", "width", "height", "k1", "k2", "p1", "p2", "k3")
 
 
 @dataclass(frozen=True)
@@ -27,6 +31,62 @@ class CameraConfig:
     p2: float = 0.0
     k3: float = 0.0
 
+    @classmethod
+    def from_yaml(cls, path: str) -> "CameraConfig":
+        """Read a calib file of flat ``Camera.<key>: value`` lines: what
+        ``to_yaml`` (and the JAX package's, through PyYAML) writes, and the
+        reference's OpenCV ``%YAML:1.0`` files. ``fx``, ``fy``, ``cx``,
+        ``cy``, ``width`` and ``height`` are required, the distortion terms
+        default to 0. No PyYAML: a line is ``key: scalar``, a ``#`` starts
+        a comment, and directives (``%``) and document markers are
+        skipped."""
+        cam = {}
+        with open(os.path.expanduser(path)) as fh:
+            for line in fh:
+                line = line.split("#", 1)[0].strip()
+                if not line or line.startswith("%") or line in ("---", "..."):
+                    continue
+                key, sep, value = line.partition(":")
+                if not sep:
+                    raise ValueError(f"{path}: not a 'key: value' line: {line!r}")
+                cam[key.strip()] = value.strip().strip("'\"")
+
+        def get(key, cast, default=None):
+            if f"Camera.{key}" not in cam:
+                if default is None:
+                    raise KeyError(f"{path} has no Camera.{key}")
+                return default
+            return cast(float(cam[f"Camera.{key}"]))
+
+        return cls(**{k: get(k, int) if k in ("width", "height") else
+                      get(k, float, None if k in ("fx", "fy", "cx", "cy") else 0.0)
+                      for k in _CAMERA_KEYS})
+
+    def to_yaml(self, path: str) -> None:
+        """Write the calib as PyYAML's ``safe_dump`` writes the JAX
+        package's: one ``Camera.<key>: value`` line a key, keys sorted."""
+        with open(path, "w") as fh:
+            for key in sorted(f"Camera.{k}" for k in _CAMERA_KEYS):
+                fh.write(f"{key}: {_yaml_scalar(getattr(self, key[7:]))}\n")
+
+
+def _yaml_scalar(value) -> str:
+    """A number as PyYAML writes it: ints plainly, floats by ``repr`` with a
+    ``.0`` before a bare exponent (``1.0e-05``), so YAML 1.1 reads them
+    back as floats."""
+    if isinstance(value, bool) or not isinstance(value, (int, float)):
+        raise TypeError(f"not a number: {value!r}")
+    if isinstance(value, int):
+        return str(value)
+    if math.isnan(value):
+        return ".nan"
+    if math.isinf(value):
+        return ".inf" if value > 0 else "-.inf"
+    text = repr(value).lower()
+    if "." not in text and "e" in text:
+        text = text.replace("e", ".0e", 1)
+    return text
+
 
 @dataclass(frozen=True)
 class OccupancyConfig:
@@ -41,6 +101,13 @@ class OccupancyConfig:
     def occupancy_shape(self) -> Tuple[float, float, float]:
         """Grid extent in meters."""
         return tuple(g / s for g, s in zip(self.grid_size, self.scale))
+
+
+# the GT occupancy pipeline's point-cloud scaling, not the model's
+GT_OCCUPANCY = OccupancyConfig(
+    pc_scale=(500.0, 2500.0, 200.0),
+    pc_shift=(100.0, 40.0, 0.0),
+)
 
 
 # model_type -> (backbone name, net_w, net_h)
