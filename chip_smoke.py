@@ -35,16 +35,26 @@ Phases, each of which fails the run on any error:
    its neighbouring plans at both decoders' map sizes;
 4. four served configurations at full width and depth, weights from a
    numpy seed, 1080x1920 uint8 requests at batch 1 and 2, with and
-   without the occupancy grid, through ``make_serving_fn``: SOccDPT V3 on
-   the flagship ``dpt_swin2_tiny_256`` (K1, K2) and on
-   ``dpt_beit_large_512`` (K6, K2), and SOccDPT V1 (two trunks, K1 24
-   times a request) and V2 (one trunk, two heads) on the flagship. For
-   each, the launch counts are set to 0 just before its requests and
-   read just after, and prove the path ran through its kernels; the
-   card's f32 outputs are held to the same request served on the CPU;
-   then bf16 latency per request and a device-time profile. The BEiT path
-   also serves one request through the real 3-D occupancy head and one
-   with its folded biases stored in bf16;
+   without the occupancy grid, through ``make_serving_fn``'s CUDA graphs
+   (one a batch size): SOccDPT V3 on the flagship ``dpt_swin2_tiny_256``
+   (K1, K2) and on ``dpt_beit_large_512`` (K6, K2), and SOccDPT V1 (two
+   trunks, K1 24 times a request) and V2 (one trunk, two heads) on the
+   flagship. For each, the launch counts are set to 0 just before its
+   requests and read just after; the graphs' kernel nodes, read through
+   libcuda's graph API, times their replays prove the path ran through its
+   kernels; the graphs' outputs are held to the eager path's on the same
+   frames; the card's f32 outputs are held to the same request served on
+   the CPU; then bf16 latency per request, graph against eager, with a
+   device-time profile of each, the host calls a request, the graph's
+   nodes, capture time and memory pool, the copy out of the pool and the
+   weight check. The flagship also loads other weights after a graph
+   request, which must then equal a freshly bound serving fn's. The BEiT
+   path also serves one request through the real 3-D occupancy head and
+   one with its folded biases stored in bf16;
+4b. ``serve_stream`` on the flagship, bf16, batch 1, with and without the
+   grid: 50 pageable 1080p frames at depth 1, 2 and 3, with the host
+   thread and fed serially, each output held to ``serve()`` of its frame;
+   frames/s, latency percentiles, busy share and the frame's copy;
 5. training, through ``soccdpt_torch.train.trainer.Trainer`` on a fixed
    synthetic batch with GT at 1080x1920: ``dpt_beit_large_512`` at full
    width and depth, batch 2 (K6 forward and K7 backward, 24 launches each
@@ -68,7 +78,11 @@ Phases, each of which fails the run on any error:
    steps, a base checkpoint with the depth head scaled as in phase 4):
    K1 twelve times and K2 once a step and nothing else of the table, the
    losses, the checkpoint, the val IoU against predicting every cell
-   occupied, the step time and a profile of one step.
+   occupied, the step time and a profile of one step;
+7. the timing CLIs: ``python -m soccdpt_torch.cli.bench`` (through its
+   ``main``), ``eval_timing --contract full`` and ``--contract occ`` for the
+   four served configurations, ``eval_patchwise`` on the flagship at batch
+   1, 2 and 4 and patch-wise 1.0, 0.5 and 0.25 (any error row fails).
 
 It prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -943,7 +957,8 @@ def live_decoder(torch, dtype):
             handles.append(mod.register_forward_hook(keep(path)))
     handles.append(dpt.refinenet1.register_forward_hook(keep("refinenet1")))
     handles.append(dpt.head.register_forward_hook(keep("head")))
-    make_serving_fn(cfg, model, compute_occ=False)(frames_u8(torch, 1, 300))
+    # eager: a hook inside a capture would keep tensors of the graph's pool
+    make_serving_fn(cfg, model, compute_occ=False, graph=False)(frames_u8(torch, 1, 300))
     torch.cuda.synchronize()
     for h in handles:
         h.remove()
@@ -1158,6 +1173,102 @@ def graph_launches(torch, fn):
     return n.value
 
 
+# the kernels whose launches a served graph holds, by a part of their name
+GRAPH_KERNEL_NAMES = {"window_attention": "window_attention_kernel",
+                      "global_attention": "global_attention_kernel",
+                      "segment_sum": "segment_sum_kernel"}
+CU_GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def graph_census(graph):
+    """The nodes of a captured CUDA graph (kept with ``keep_graph=True``),
+    read through libcuda: ``{"nodes": n, "by_type": {...}, "kernels":
+    {name: nodes}}``, each kernel node named by ``cuFuncGetName`` (or
+    ``cuKernelGetName``) and counted under the served kernel it is."""
+    import ctypes
+    from collections import Counter
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def ok(rc, what):
+        if rc != 0:
+            fail(f"{what} returned libcuda error {rc}")
+
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    get_params = getattr(cu, "cuGraphKernelNodeGetParams_v2", None) or cu.cuGraphKernelNodeGetParams
+    types, kernels = Counter(), Counter()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        types[CU_GRAPH_NODE_TYPES.get(kind.value, str(kind.value))] += 1
+        if kind.value != 0:
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: CUfunction func at 0, ..., CUkernel kern at 56
+        params = (ctypes.c_byte * 128)()
+        ok(get_params(ctypes.c_void_p(node), params), "cuGraphKernelNodeGetParams")
+        func = ctypes.c_void_p.from_buffer(params, 0).value
+        kern = ctypes.c_void_p.from_buffer(params, 56).value
+        name = ctypes.c_char_p()
+        if func:
+            ok(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)), "cuFuncGetName")
+        else:
+            ok(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(kern)), "cuKernelGetName")
+        full = (name.value or b"?").decode()
+        for label, part in GRAPH_KERNEL_NAMES.items():
+            if part in full:
+                kernels[label] += 1
+    return {"nodes": n.value, "by_type": dict(types),
+            "kernels": {label: kernels.get(label, 0) for label in GRAPH_KERNEL_NAMES}}
+
+
+# CUDA runtime and libcuda calls that put work on a stream, as the profiler
+# records them on the host
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                     "cudaMemsetAsync", "cudaMemcpy2DAsync")
+
+
+def host_launches(prof):
+    """Calls the host made to put work on the card, from a profile."""
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if ev.key.split("_v")[0] in HOST_LAUNCH_CALLS}
+
+
+def pool_bytes(torch, graph):
+    """(reserved, allocated) bytes of the memory pool a captured graph holds."""
+    pool = tuple(graph.pool())
+    segs = [seg for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pool]
+    return sum(seg["total_size"] for seg in segs), sum(seg["allocated_size"] for seg in segs)
+
+
+def graphed_launches(torch, graphed, names):
+    """What the served graphs of ``graphed`` (serving fns) launched: ``(nodes
+    by kernel summed over the graphs, launches by kernel over all replays,
+    census by graph)``. A wrapper's count ticks at capture, where nothing
+    runs, and at the eager warm-up before it."""
+    nodes = {name: 0 for name in names}
+    replayed = {name: 0 for name in names}
+    census = {}
+    for label, fn in graphed.items():
+        for (shape, _), cap in fn.graphs.items():
+            c = graph_census(cap.graph)
+            reserved, allocated = pool_bytes(torch, cap.graph)
+            census[f"{label} {list(shape)}"] = {**c, "replays": cap.replays,
+                                                "warmup_s": cap.warmup_seconds,
+                                                "capture_s": cap.capture_seconds,
+                                                "pool_reserved_bytes": reserved,
+                                                "pool_allocated_bytes": allocated}
+            for name in names:
+                nodes[name] += c["kernels"].get(name, 0)
+                replayed[name] += c["kernels"].get(name, 0) * cap.replays
+    return nodes, replayed, census
+
+
 def phase_decoder(torch, F, sass):
     kernels = decoder_kernels()
     checks = {name: [] for name in kernels}
@@ -1365,6 +1476,101 @@ def check_parity(torch, got, want, label):
     return parity
 
 
+def compare_served(torch, got, want, where):
+    """Two served requests' outputs on the same frames (a graph's against
+    the eager path's, a streamed one's against ``serve()``'s, a reloaded
+    graph's against a fresh one's): bit for bit expected, §2's ladder the
+    bound (K2's atomics add in an order the card chooses, so the grid is
+    held by its mass)."""
+    out = {}
+    for name, g, w in zip(PARITY_ATOL, got, want):
+        err = float((g.float() - w.float()).abs().max())
+        out[name] = {"bit_equal": bool(torch.equal(g, w)), "max_abs_err": err,
+                     "atol": PARITY_ATOL[name]}
+        if not err <= PARITY_ATOL[name]:
+            fail(f"{where}: {name} differs by {err}")
+    if (got[3] is None) != (want[3] is None):
+        fail(f"{where}: one path returned a grid and the other none")
+    if want[3] is not None:
+        mass = float(want[3].sum())
+        mism = float((got[3] - want[3]).abs().sum()) / max(mass, 1e-30)
+        out["grid"] = {"bit_equal": bool(torch.equal(got[3], want[3])),
+                       "max_abs_err": float((got[3] - want[3]).abs().max()),
+                       "mismatched_mass_share": mism, "limit": GRID_MISMATCH_LIMIT}
+        if not (mass > 0 and mism < GRID_MISMATCH_LIMIT):
+            fail(f"{where}: the grids differ ({mism} of the mass)")
+    return out
+
+
+def time_requests(torch, fn, frames, reps):
+    """Host ms per request ending in a synchronize, after 3 warm-ups."""
+    for i in range(3):
+        fn(frames[i % len(frames)])
+    torch.cuda.synchronize()
+    times = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        fn(frames[i % len(frames)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"mean_ms": float(np.mean(times)), "median_ms": float(np.median(times)),
+            "min_ms": float(np.min(times))}
+
+
+def profile_requests(torch, fn, frame, n=5):
+    """Device operations of ``n`` requests by key, per request: ([(key, µs,
+    count)] sorted by time, host calls that put work on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(frame)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn(frame)
+        torch.cuda.synchronize()
+    rows = [(ev.key, ev.device_time_total / n, ev.count / n) for ev in device_events(prof)]
+    rows.sort(key=lambda r: -r[1])
+    return rows, {k: c / n for k, c in host_launches(prof).items()}
+
+
+def weight_reload_check(torch, cfg16, same_weights, label):
+    """After a first graph request, other weights come in through
+    ``load_state_dict``: the next request of the same serving fn must
+    recapture and equal a freshly bound serving fn's output."""
+    from soccdpt_torch.models.soccdpt import SOccDPT_versions, build_model
+    from soccdpt_torch.serving import make_serving_fn
+
+    model = same_weights(cfg16)
+    served = make_serving_fn(cfg16, model, compute_occ=True)
+    frame = frames_u8(torch, 1, 3000)
+    first = served(frame)
+    other = build_model(cfg16, device="cuda", seed=1)
+    with torch.no_grad():
+        head = other.depth_net.head if cfg16.version != 2 else other.depth_head
+        head.conv3.weight.mul_(0.01)
+        head.conv3.bias.fill_(0.3)
+    new_weights = other.state_dict()
+    del other
+    t0 = time.perf_counter()
+    model.load_state_dict(new_weights)
+    second = served(frame)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    fresh = SOccDPT_versions[cfg16.version](cfg16)
+    fresh.load_state_dict(new_weights)
+    want = make_serving_fn(cfg16, fresh, compute_occ=True)(frame)
+    out = {"recaptures": served.recaptures,
+           "against_fresh": compare_served(torch, second, want, f"{label} weight reload"),
+           "inv_depth_moved_by": float((first[0] - second[0]).abs().max()),
+           "load_and_request_s": seconds}
+    log(f"{label} weight reload through load_state_dict: {out}")
+    if served.recaptures != 1:
+        fail(f"{label}: the weight load made {served.recaptures} recaptures, expected 1")
+    if not out["inv_depth_moved_by"] > 0:
+        fail(f"{label}: the request after the weight load served the old weights")
+    return out
+
+
 def phase_serving(torch, card, label):
     from soccdpt_torch.core.config import ModelConfig
     from soccdpt_torch.kernels import global_attention as ga
@@ -1372,7 +1578,7 @@ def phase_serving(torch, card, label):
     from soccdpt_torch.kernels import window_attention as wa
     from soccdpt_torch.models.soccdpt import SOccDPT_versions, build_model
     from soccdpt_torch.ops.geometry import occupancy_slots, rotate_points
-    from soccdpt_torch.serving import make_serving_fn
+    from soccdpt_torch.serving import GraphedFunction, make_serving_fn
     from soccdpt_torch.weights import init_random_
 
     spec = SERVED[label]
@@ -1387,7 +1593,7 @@ def phase_serving(torch, card, label):
         head = base.depth_net.head if cfg.version != 2 else base.depth_head
         head.conv3.weight.mul_(0.01)
         head.conv3.bias.fill_(0.3)
-    probe = make_serving_fn(cfg, base)(frames_u8(torch, 1, 100))
+    probe = make_serving_fn(cfg, base, graph=False)(frames_u8(torch, 1, 100))
     cfg32 = calibrated(cfg, probe[2])
     cfg16 = dataclasses.replace(cfg32, compute_dtype="bfloat16")
     weights = base.state_dict()
@@ -1407,26 +1613,50 @@ def phase_serving(torch, card, label):
         f"{time.perf_counter() - t0:.1f} s; "
         f"pc_scale {cfg32.occupancy.pc_scale} pc_shift {cfg32.occupancy.pc_shift}")
 
-    # --- the main path: bf16 serving, counts from 0 -------------------------
+    # --- the main path: bf16 serving through CUDA graphs, counts from 0 -----
     serve = {occ: make_serving_fn(cfg16, model16, compute_occ=occ) for occ in (False, True)}
+    if not all(isinstance(fn, GraphedFunction) for fn in serve.values()):
+        fail(f"{label}: make_serving_fn did not serve through CUDA graphs on the card")
     runs = [(1, False), (1, True), (2, False), (2, True)]
     requests = 2
     for fn in counters.values():
         fn.launches = 0
     outs = {}
+    t0 = time.perf_counter()
     for B, occ in runs:
         for r in range(requests):
             outs[(B, occ)] = serve[occ](frames_u8(torch, B, 10 * B + r))
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    main_path_s = time.perf_counter() - t0
+    ticks = {name: fn.launches for name, fn in counters.items()}
+    nodes, replayed, census = graphed_launches(
+        torch, {f"occ={occ}": fn for occ, fn in serve.items()}, counters)
+    # a wrapper ticks at a graph's eager warm-up, which launches, and at its
+    # capture, which launches nothing; the replays launch the graph's nodes
+    launches = {name: ticks[name] - nodes[name] + replayed[name] for name in counters}
     forwards = requests * len(runs)
-    expected = {name: n * forwards for name, n in spec["per_request"].items()}
-    expected["segment_sum"] = requests * sum(occ for _, occ in runs)
-    log(f"{label} main path: {forwards} requests, launches {launches}")
-    for name, want_n in expected.items():
-        if launches[name] != want_n:
-            fail(f"{label}: {name} ran {launches[name]} times in {forwards} requests, "
-                 f"expected {want_n}")
+    per_graph = dict(spec["per_request"])
+    per_graph["segment_sum"] = 1
+    graphs_with = {name: len(runs) for name in per_graph}
+    graphs_with["segment_sum"] = sum(occ for _, occ in runs)
+    record["main_path"] = {"requests": forwards, "seconds": main_path_s, "wrapper_counts": ticks,
+                           "graph_kernel_nodes": nodes, "replayed": replayed,
+                           "launched": launches, "graphs": census}
+    log(f"{label} main path: {forwards} graph requests in {main_path_s:.1f} s (captures "
+        f"included); kernel nodes {nodes}, replayed {replayed}, launched {launches} "
+        f"(wrapper counts {ticks})")
+    for name, n in per_graph.items():
+        want_nodes = n * graphs_with[name]
+        want_replayed = n * requests * graphs_with[name]
+        if nodes[name] != want_nodes or replayed[name] != want_replayed:
+            fail(f"{label}: the graphs hold {nodes[name]} {name} nodes replayed into "
+                 f"{replayed[name]} launches, expected {want_nodes} and {want_replayed}")
+        if ticks[name] != 2 * nodes[name]:
+            fail(f"{label}: {name}'s count {ticks[name]} is not its warm-ups and captures "
+                 f"({2 * nodes[name]})")
+    if sorted(len(fn.graphs) for fn in serve.values()) != [2, 2] or any(
+            cap.replays != requests for fn in serve.values() for cap in fn.graphs.values()):
+        fail(f"{label}: expected one graph a batch size, replayed once a request: {census}")
     for (B, occ), (inv, seg, pts, grid) in outs.items():
         shapes = [tuple(inv.shape), tuple(seg.shape), tuple(pts.shape)]
         if shapes != [(B, 1080, 1920), (B, 3, 1080, 1920), (B, 1080, 1920, 3)]:
@@ -1440,7 +1670,25 @@ def phase_serving(torch, card, label):
                 fail(f"{label}: empty occupancy grid at batch {B}")
         elif grid is not None:
             fail(f"{label}: a grid came back with compute_occ=False")
-    del outs
+
+    # --- the graphs' outputs against the eager path's, on the same frames ----
+    eager = {occ: make_serving_fn(cfg16, model16, compute_occ=occ, graph=False)
+             for occ in (False, True)}
+    # binding a second serving fn to the model must leave the graphs' bias
+    # caches in place, or every graph request after it recaptures
+    if not all(fn.weights.current() for fn in serve.values()):
+        fail(f"{label}: binding an eager serving fn changed what the graphs read")
+    versus = {}
+    for (B, occ), got in outs.items():
+        want = eager[occ](frames_u8(torch, B, 10 * B + requests - 1))
+        versus[f"b{B}_occ{int(occ)}"] = compare_served(torch, got, want,
+                                                       f"{label} batch {B} occ={occ}")
+    torch.cuda.synchronize()
+    record["graph_vs_eager_bf16"] = versus
+    log(f"{label} graph against eager, bf16: " + "; ".join(
+        f"{k}: " + ", ".join(f"{n} {'equal' if v['bit_equal'] else 'max|err| %.3g' % v['max_abs_err']}"
+                             for n, v in cmp.items()) for k, cmp in versus.items()))
+    del outs, want
 
     # --- parity: the card's f32 outputs against the CPU's, TF32 off ----------
     set_tf32(torch, False)
@@ -1459,8 +1707,11 @@ def phase_serving(torch, card, label):
         head_model = same_weights(cfg_head)
         frames = frames_u8(torch, 1, 8)
         before = ga.global_attention.launches
-        got = make_serving_fn(cfg_head, head_model, compute_occ=True)(frames)
-        if ga.global_attention.launches != before + 24:
+        head_fn = make_serving_fn(cfg_head, head_model, compute_occ=True)
+        got = head_fn(frames)
+        nodes, replayed, _ = graphed_launches(torch, {"head": head_fn}, ["global_attention"])
+        if replayed["global_attention"] != 24 or (
+                ga.global_attention.launches - before != 2 * nodes["global_attention"]):
             fail("beit: the occupancy-head request did not run K6 24 times")
         cpu_model = copy.deepcopy(head_model).cpu()
         want = make_serving_fn(cfg_head, cpu_model, compute_occ=True, device="cpu")(frames.cpu())
@@ -1478,47 +1729,34 @@ def phase_serving(torch, card, label):
         if not (head["mean_abs_err"] < HEAD_MEAN_ABS_LIMIT
                 and head["cells_off_share"] < HEAD_CELL_SHARE_LIMIT):
             fail("beit: the refined grid differs from the CPU run")
-        del cpu_model, head_model, want, got
+        del cpu_model, head_model, head_fn, want, got
     del model32
     set_tf32(torch, True)
 
-    # --- latency per bf16 request (host clock ending in synchronize) --------
-    latency = {}
+    # --- graph against eager, bf16: latency (host clock ending in a
+    # synchronize), device time, launches, capture, pools --------------------
+    latency, latency_eager = {}, {}
     for B, occ in runs:
-        fn = serve[occ]
         frames = [frames_u8(torch, B, 1000 + i) for i in range(4)]
-        for i in range(3):
-            fn(frames[i % 4])
-        torch.cuda.synchronize()
-        times = []
-        for i in range(spec["latency_reps"]):
-            t0 = time.perf_counter()
-            fn(frames[i % 4])
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        latency[f"b{B}_occ{int(occ)}"] = {"mean_ms": float(np.mean(times)),
-                                          "median_ms": float(np.median(times)),
-                                          "min_ms": float(np.min(times))}
-        log(f"{label} served bf16 batch {B} occ={occ}: {np.mean(times):.3f} ms/request mean, "
-            f"{np.median(times):.3f} median ({card})")
+        key = f"b{B}_occ{int(occ)}"
+        latency[key] = time_requests(torch, serve[occ], frames, spec["latency_reps"])
+        latency_eager[key] = time_requests(torch, eager[occ], frames, spec["latency_reps"])
+        log(f"{label} served bf16 batch {B} occ={occ}: graph {latency[key]['median_ms']:.3f} ms/"
+            f"request median, eager {latency_eager[key]['median_ms']:.3f} ({card})")
     record["latency_bf16"] = latency
-
-    # --- device time by kernel for one bf16 batch-1 occupancy request -------
-    from torch.profiler import ProfilerActivity, profile
+    record["latency_bf16_eager"] = latency_eager
+    if any(fn.recaptures for fn in serve.values()):
+        fail(f"{label}: graph requests after the eager binding recaptured: "
+             f"{[fn.recaptures for fn in serve.values()]}")
+    del frames
 
     fn = serve[True]
     frame = frames_u8(torch, 1, 2000)
-    fn(frame)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fn(frame)
-        torch.cuda.synchronize()
+    rows, host_calls = profile_requests(torch, fn, frame)
+    rows_e, host_calls_e = profile_requests(torch, eager[True], frame)
     # device-side events only (kernels, memcpy, memset), so nothing is
     # counted twice through the operator that launched it
-    rows = [(ev.key, ev.device_time_total / 5.0, ev.count / 5.0) for ev in device_events(prof)]
-    rows.sort(key=lambda r: -r[1])
-    device_us = sum(us for _, us, _ in rows) * 5.0
+    device_ms = sum(us for _, us, _ in rows) / 1e3
     record["served_kernel_device_ms_b1_occ"] = {
         name: sum(us for k, us, _ in rows if f"{name}_kernel" in k) / 1e3 for name in counters}
     log(f"{label}, in the served request: {record['served_kernel_device_ms_b1_occ']} ms of "
@@ -1526,14 +1764,52 @@ def phase_serving(torch, card, label):
     record["profile_b1_occ_us_per_request"] = [
         {"name": k[:120], "device_us": us, "calls": c} for k, us, c in rows[:40]]
     wall = latency["b1_occ1"]["median_ms"]
-    record["device_ms_per_request_b1_occ"] = device_us / 5.0 / 1e3
+    record["device_ms_per_request_b1_occ"] = device_ms
     record["launches_per_request_b1_occ"] = sum(c for _, _, c in rows)
-    log(f"{label} profile (bf16, batch 1, occ): {device_us / 5.0 / 1e3:.3f} ms of device time in "
-        f"{record['launches_per_request_b1_occ']:.0f} launches per request against {wall:.3f} ms "
-        f"median wall time: busy share {device_us / 5.0 / 1e3 / wall:.3f}; top device time per "
-        f"request:")
+    record["host_calls_per_request_b1_occ"] = host_calls
+    (cap,) = [c for (shape, _), c in fn.graphs.items() if shape[0] == 1]
+    nodes_b1 = graph_census(cap.graph)
+    reserved, allocated = pool_bytes(torch, cap.graph)
+    device_ms_e = sum(us for _, us, _ in rows_e) / 1e3
+    wall_e = latency_eager["b1_occ1"]["median_ms"]
+    # what the graph path adds to a request: the copies out of the pool and
+    # the weight check on the host
+    outputs = [o for o in cap.outputs if o is not None]
+    copy_out_ms = cuda_ms(torch, lambda: [o.clone() for o in outputs])
+    t0 = time.perf_counter()
+    for _ in range(200):
+        current = fn.weights.current()
+    check_us = (time.perf_counter() - t0) / 200 * 1e6
+    if not current:
+        fail(f"{label}: the served weights read as changed")
+    record["graph_against_eager_b1_occ"] = {
+        "graph": {"wall_median_ms": wall, "device_ms": device_ms,
+                  "device_ops": record["launches_per_request_b1_occ"],
+                  "host_calls": sum(host_calls.values()), "host_calls_by_name": host_calls,
+                  "graph_nodes": nodes_b1["nodes"], "graph_nodes_by_type": nodes_b1["by_type"],
+                  "warmup_s": cap.warmup_seconds, "capture_s": cap.capture_seconds,
+                  "pool_reserved_bytes": reserved, "pool_allocated_bytes": allocated,
+                  "copy_out_device_ms": copy_out_ms,
+                  "copy_out_bytes": sum(o.numel() * o.element_size() for o in outputs),
+                  "weight_check_host_us": check_us, "busy_share": device_ms / wall},
+        "eager": {"wall_median_ms": wall_e, "device_ms": device_ms_e,
+                  "device_ops": sum(c for _, _, c in rows_e),
+                  "host_calls": sum(host_calls_e.values()), "host_calls_by_name": host_calls_e,
+                  "busy_share": device_ms_e / wall_e}}
+    g, e = record["graph_against_eager_b1_occ"]["graph"], record["graph_against_eager_b1_occ"]["eager"]
+    log(f"{label} bf16 batch 1 occ, graph against eager ({card}): wall {wall:.3f} / "
+        f"{wall_e:.3f} ms; device {device_ms:.3f} / {device_ms_e:.3f} ms; host calls a request "
+        f"{g['host_calls']:.0f} / {e['host_calls']:.0f}; device ops {g['device_ops']:.0f} / "
+        f"{e['device_ops']:.0f}; graph nodes {g['graph_nodes']} {g['graph_nodes_by_type']}; "
+        f"warm-up {cap.warmup_seconds:.2f} s, capture {cap.capture_seconds:.2f} s; pool "
+        f"{reserved / 2**20:.0f} MiB reserved ({allocated / 2**20:.0f} allocated); copy-out "
+        f"{copy_out_ms:.4f} ms of device time; weight check {check_us:.1f} us on the host; "
+        f"busy share {g['busy_share']:.3f} / {e['busy_share']:.3f}; top device time per request:")
     for k, us, c in rows[:12]:
         log(f"  {us:9.1f} us  x{c:5.1f}  {k[:90]}")
+
+    if label == "swin":
+        record["weight_reload"] = weight_reload_check(torch, cfg16, same_weights, label)
 
     # the served frames' own segment-sum problems for K2: a batch-2 request
     # and its first frame alone, the values the served (B, N, C) views
@@ -1575,6 +1851,247 @@ def phase_serving(torch, card, label):
                 d < BF16_CACHE_MEAN_ABS_LIMIT for d in diffs.values()):
             fail("beit: serving with a bf16 bias cache left the f32-cached outputs")
     return launches, problem
+
+
+# ---------------------------------------------------------------------------
+# serve_stream on the flagship
+# ---------------------------------------------------------------------------
+
+STREAM_FRAMES = 50
+STREAM_DEPTHS = (1, 2, 3)
+STREAM_COPY_REPS = 10
+# PERF.md §2: the reference's 47 Hz as a rate, and as a p99 at depth 1
+STREAM_RATE_LIMIT, STREAM_P99_LIMIT_MS = 47.0, 1e3 / 47.0
+
+
+def stream_copy_times(torch, frames):
+    """Host and device ms of moving one pageable 1080p frame: the pinned
+    put (a host memcpy into pinned memory and the start of the copy), the
+    pinned copy's device time on a side stream, and a blocking pageable
+    ``.to()``, medians of ``STREAM_COPY_REPS``."""
+    from soccdpt_torch.data.loader import pinned_put
+
+    put, side = pinned_put("cuda"), torch.cuda.Stream()
+    host, device, pageable = [], [], []
+    for f in frames[:STREAM_COPY_REPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged = put(f)
+        host.append((time.perf_counter() - t0) * 1e3)
+        staged.result()
+        torch.cuda.synchronize()
+        pinned = torch.from_numpy(f).pin_memory()
+        out = torch.empty(pinned.shape, dtype=pinned.dtype, device="cuda")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(side):
+            start.record(side)
+            out.copy_(pinned, non_blocking=True)
+            end.record(side)
+        end.synchronize()
+        device.append(start.elapsed_time(end))
+        t0 = time.perf_counter()
+        torch.from_numpy(f).to("cuda")
+        pageable.append((time.perf_counter() - t0) * 1e3)
+    nbytes = frames[0].nbytes
+    out = {"frame_bytes": nbytes, "pinned_put_host_ms": float(np.median(host)),
+           "pinned_copy_device_ms": float(np.median(device)),
+           "pinned_copy_gb_per_s": nbytes / float(np.median(device)) / 1e6,
+           "pageable_to_ms": float(np.median(pageable)),
+           "pageable_gb_per_s": nbytes / float(np.median(pageable)) / 1e6}
+    log(f"stream: a {nbytes / 1e6:.1f} MB frame: pinned put {out['pinned_put_host_ms']:.3f} ms on "
+        f"the host, its copy {out['pinned_copy_device_ms']:.3f} ms on the card "
+        f"({out['pinned_copy_gb_per_s']:.1f} GB/s); pageable .to() {out['pageable_to_ms']:.3f} ms "
+        f"({out['pageable_gb_per_s']:.1f} GB/s)")
+    return out
+
+
+def phase_stream(torch, card):
+    """``serving.serve_stream`` on the flagship V3, bf16, batch 1, with and
+    without the grid: ``STREAM_FRAMES`` pageable uint8 1080p frames from a
+    seed at each depth, with the host thread and fed serially, each output
+    held to ``serve()`` of its frame; frames/s, latency from a frame's
+    hand-over to its output's readiness, the share of the run the serving
+    stream was busy (CUDA events around each request)."""
+    from soccdpt_torch.core.config import ModelConfig
+    from soccdpt_torch.kernels import segment_sum as ss
+    from soccdpt_torch.kernels import window_attention as wa
+    from soccdpt_torch.models.soccdpt import SOccDPT_versions, build_model
+    from soccdpt_torch.serving import make_serving_fn, serve_stream
+
+    record = RECORD.setdefault("stream_swin", {"model_type": "dpt_swin2_tiny_256", "batch": 1})
+    cfg = ModelConfig(model_type="dpt_swin2_tiny_256", version=3)
+    base = build_model(cfg, device="cuda", seed=0)
+    with torch.no_grad():  # as phase_serving: inverse depth in a well-conditioned band
+        base.depth_net.head.conv3.weight.mul_(0.01)
+        base.depth_net.head.conv3.bias.fill_(0.3)
+    probe = make_serving_fn(cfg, base, graph=False)(frames_u8(torch, 1, 100))
+    cfg16 = dataclasses.replace(calibrated(cfg, probe[2]), compute_dtype="bfloat16")
+    model = SOccDPT_versions[3](cfg16)
+    model.load_state_dict(base.state_dict())
+    del base, probe
+    rng = np.random.default_rng(50)
+    frames = [rng.integers(0, 256, (1, 1080, 1920, 3), dtype=np.uint8)
+              for _ in range(STREAM_FRAMES)]
+    record["copy"] = stream_copy_times(torch, frames)
+
+    class Timed:
+        """The serving fn with CUDA events around each request on its stream."""
+
+        def __init__(self, fn):
+            self.fn, self.device, self.events = fn, fn.device, []
+
+        def __call__(self, x):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.fn(x)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        def busy_s(self):
+            return sum(s.elapsed_time(e) for s, e in self.events) / 1e3
+
+    counters = {"window_attention": wa.window_attention, "segment_sum": ss.segment_sum}
+    for fn in counters.values():
+        fn.launches = 0
+    serve = {occ: make_serving_fn(cfg16, model, compute_occ=occ) for occ in (False, True)}
+    runs, requests, misses = {}, 0, []
+    for occ in (False, True):
+        want = [serve[occ](f) for f in frames]
+        requests += len(frames)
+        # an untimed run first: the allocator reserves the memory a run's
+        # outputs hold once, before any timed run
+        warm = list(serve_stream(serve[occ], iter(frames), depth=max(STREAM_DEPTHS)))
+        requests += len(frames)
+        del warm
+        # host thread and serial in turns, twice each (thread, serial,
+        # serial, thread), the runs of a key recorded in order
+        for depth in STREAM_DEPTHS:
+            for thread in (True, False, False, True):
+                timed, handed, ready = Timed(serve[occ]), [], []
+
+                def source():
+                    for f in frames:
+                        handed.append(time.perf_counter())
+                        yield f
+
+                outs = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for out in serve_stream(timed, source(), depth=depth,
+                                        host_prefetch=2 if thread else None):
+                    ready.append(time.perf_counter())
+                    outs.append(out)
+                wall = time.perf_counter() - t0
+                requests += len(frames)
+                if len(outs) != len(frames):
+                    fail(f"stream: {len(outs)} outputs for {len(frames)} frames")
+                cmps = [compare_served(torch, g, w, f"stream frame {i} depth {depth}")
+                        for i, (g, w) in enumerate(zip(outs, want))]
+                lat = (np.array(ready) - np.array(handed)) * 1e3
+                key = f"occ{int(occ)}_depth{depth}_{'thread' if thread else 'serial'}"
+                r = {"frames_per_s": len(frames) / wall, "wall_s": wall,
+                     "latency_p50_ms": float(np.percentile(lat, 50)),
+                     "latency_p99_ms": float(np.percentile(lat, 99)),
+                     "busy_share": timed.busy_s() / wall,
+                     "bit_equal_frames": sum(all(c[n]["bit_equal"] for n in PARITY_ATOL)
+                                             for c in cmps),
+                     "grid_max_mismatch": max((c["grid"]["mismatched_mass_share"]
+                                               for c in cmps if "grid" in c), default=0.0)}
+                runs.setdefault(key, []).append(r)
+                if r["frames_per_s"] < STREAM_RATE_LIMIT or (
+                        depth == 1 and r["latency_p99_ms"] >= STREAM_P99_LIMIT_MS):
+                    misses.append(f"{key} run {len(runs[key])}")
+                log(f"stream occ={occ} depth {depth} {'host thread' if thread else 'serial'}: "
+                    f"{r['frames_per_s']:.1f} frames/s, latency p50 {r['latency_p50_ms']:.3f} "
+                    f"p99 {r['latency_p99_ms']:.3f} ms, busy share {r['busy_share']:.3f}, "
+                    f"{r['bit_equal_frames']}/{len(frames)} frames bit for bit ({card})")
+                del outs
+        del want
+    torch.cuda.synchronize()
+    ticks = {name: fn.launches for name, fn in counters.items()}
+    nodes, replayed, census = graphed_launches(
+        torch, {f"occ={occ}": fn for occ, fn in serve.items()}, counters)
+    launches = {name: ticks[name] - nodes[name] + replayed[name] for name in counters}
+    record.update({"frames": STREAM_FRAMES, "runs": runs, "requests": requests,
+                   "launched": launches, "graphs": census,
+                   "limits": {"frames_per_s": STREAM_RATE_LIMIT,
+                              "p99_ms_at_depth_1": STREAM_P99_LIMIT_MS},
+                   "limit_misses": misses})
+    log(f"stream: runs that miss PERF.md §2's limits ({STREAM_RATE_LIMIT} frames/s; p99 under "
+        f"{STREAM_P99_LIMIT_MS:.1f} ms at depth 1): {misses or 'none'}")
+    log(f"stream: {requests} graph requests, kernel nodes {nodes}, launched {launches}")
+    want_n = {"window_attention": 12 * requests, "segment_sum": requests // 2}
+    for name, n in want_n.items():
+        if replayed[name] != n:
+            fail(f"stream: {name} replayed {replayed[name]} times in {requests} requests, "
+                 f"expected {n}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the timing CLIs on the card
+# ---------------------------------------------------------------------------
+
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "batch", "hz_std", "ms_per_forward",
+              "ms_std", "raw_net_hz", "raw_net_ms", "device")
+TIMED_SERVED = ((["dpt_swin2_tiny_256", "dpt_beit_large_512"], 3), (["dpt_swin2_tiny_256"], 1),
+                (["dpt_swin2_tiny_256"], 2))
+PATCHWISE_ARGS = ["-t", "dpt_swin2_tiny_256", "-v", "3", "--batch_sizes", "1", "2", "4",
+                  "--patchwise", "1.0", "0.5", "0.25", "--encoder_pct", "0.5"]
+
+
+def json_lines(fn, *args):
+    """Run a CLI's ``main`` and return the JSON objects it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(*args)
+    return [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+
+
+def phase_clis(torch, card):
+    """``python -m soccdpt_torch.cli.bench`` (through its ``main``),
+    ``eval_timing --contract full`` and ``--contract occ`` for the four
+    served configurations, and ``eval_patchwise`` on the flagship."""
+    from soccdpt_torch.cli import bench, eval_patchwise, eval_timing
+
+    record = RECORD.setdefault("clis", {})
+    kind = torch.cuda.get_device_name(0)
+    rows = json_lines(bench.main)
+    if len(rows) != 1 or any(k not in rows[0] for k in BENCH_KEYS):
+        fail(f"bench printed {rows}, expected one line with {BENCH_KEYS}")
+    row = rows[0]
+    log(f"bench: {json.dumps(row)} ({card})")
+    if not (row["value"] > 0 and row["raw_net_hz"] > 0 and row["device"] == kind):
+        fail(f"bench: {row}")
+    record["bench"] = row
+
+    timing = []
+    for contract in ("full", "occ"):
+        for types, version in TIMED_SERVED:
+            got = json_lines(eval_timing.main, ["-t", *types, "-v", str(version),
+                                                "--contract", contract, "--json"])
+            if [r["model_type"] for r in got] != types or not all(
+                    r["hz"] > 0 and r["device"] == kind for r in got):
+                fail(f"eval_timing -v {version} --contract {contract}: {got}")
+            for r in got:
+                r["version"] = version
+                log(f"eval_timing: {json.dumps(r)}")
+            timing += got
+    record["eval_timing"] = timing
+
+    rows = json_lines(eval_patchwise.main, PATCHWISE_ARGS)
+    for r in rows:
+        log(f"eval_patchwise: {json.dumps(r)}")
+    patches = {1.0: 1, 0.5: 2, 0.25: 4}
+    if len(rows) != 9 or any("error" in r or r["n_patches"] != patches[r["patchwise_pct"]]
+                             or not r["step_peak_bytes"] > r["allocated_before_step_bytes"] > 0
+                             for r in rows):
+        fail(f"eval_patchwise: {rows}")
+    record["eval_patchwise"] = rows
 
 
 # ---------------------------------------------------------------------------
@@ -2303,6 +2820,10 @@ def main():
         if label == "swin":
             problem = served_problem
         torch.cuda.empty_cache()
+    set_tf32(torch, True)
+    with phase("serve_stream dpt_swin2_tiny_256"):
+        path_launches["stream_swin"] = phase_stream(torch, card)
+    torch.cuda.empty_cache()
     set_tf32(torch, False)
     with phase("K2 against its plain version"):
         k2 = phase_k2(torch, ss, problem, _build)
@@ -2316,6 +2837,9 @@ def main():
         torch.cuda.empty_cache()
     with phase("occupancy training dpt_swin2_tiny_256"):
         path_launches["train_occ_swin"] = phase_occupancy(torch, card)
+    torch.cuda.empty_cache()
+    with phase("bench, eval_timing, eval_patchwise"):
+        phase_clis(torch, card)
     torch.cuda.empty_cache()
     del served_problem
     # each kernel's time inside a served request, from the profile of the

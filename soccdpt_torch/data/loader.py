@@ -1,17 +1,27 @@
-"""Dataset splitting and batching.
+"""Dataset splitting, batching and feeding the card.
 
-The port of ``soccdpt_tpu/data/loader.py``'s splits and batches: the same
-seeded splits and epoch orders (numpy permutations, so both packages pick
-the same samples in the same order). Its host thread (``prefetch``) and
-``device_prefetch`` are not ported: the occupancy trainer, the one caller
-so far, feeds serially, as the JAX CLI does (ROADMAP.md keeps what the
-card measured of both for the slice that needs them).
+The port of ``soccdpt_tpu/data/loader.py``: the same seeded splits and
+epoch orders (numpy permutations, so both packages pick the same samples
+in the same order), ``prefetch`` (a host thread that pulls from a slow
+source ahead of its consumer) and ``device_prefetch`` (``depth`` copies
+to the device in flight). ``pinned_put`` is a ``put_fn`` for
+``device_prefetch``: pinned host memory, a copy on a side stream, and the
+copy handed over through a CUDA event.
+
+One departure from the JAX package: when the source raises, ``prefetch``
+raises the same exception in its consumer, where the JAX version ends
+the stream silently (its ``finally`` puts the end marker either way), so
+a failing frame source looked like a short stream there.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Sequence, Tuple
+import collections
+import queue
+import threading
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 
 class Subset:
@@ -86,3 +96,99 @@ def iterate_batches(
         if drop_last and len(idx) < batch_size:
             return
         yield collate([dataset[int(i)] for i in idx])
+
+
+def device_prefetch(iterator: Iterable, put_fn: Callable, depth: int = 2) -> Iterator:
+    """Keep ``depth`` puts in flight: ``put_fn`` of item N + depth - 1 is
+    started before item N is yielded, so an asynchronous copy overlaps the
+    consumer's work on the items before it. Yields ``put_fn``'s results in
+    order."""
+    q: collections.deque = collections.deque()
+    for item in iterator:
+        q.append(put_fn(item))
+        if len(q) >= depth:
+            yield q.popleft()
+    while q:
+        yield q.popleft()
+
+
+def prefetch(iterator: Iterable, size: int = 2) -> Iterator:
+    """Pull from ``iterator`` on a background thread, at most ``size``
+    items ahead (``size`` 0 or less: no bound, as ``queue.Queue``), so a
+    slow host source overlaps its consumer. An exception of the source is
+    raised in the consumer after the items before it."""
+    q: queue.Queue = queue.Queue(maxsize=size)
+    done = object()
+    failure: List[BaseException] = []
+
+    def worker():
+        try:
+            for item in iterator:
+                q.put(item)
+        except BaseException as e:  # handed to the consumer, which raises it
+            failure.append(e)
+        finally:
+            q.put(done)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is done:
+            t.join()
+            if failure:
+                raise failure[0]
+            return
+        yield item
+
+
+class DeviceCopy:
+    """A host-to-device copy started on a side stream. ``result()`` makes
+    the calling thread's current stream wait for it (a CUDA event, no host
+    wait) and marks the tensor as used there, so the allocator never hands
+    its memory to another tensor while that stream may still read it."""
+
+    def __init__(self, tensor: torch.Tensor, event: Optional["torch.cuda.Event"]) -> None:
+        self.tensor = tensor
+        self.event = event
+
+    def result(self) -> torch.Tensor:
+        if self.event is not None:
+            stream = torch.cuda.current_stream(self.tensor.device)
+            stream.wait_event(self.event)
+            self.tensor.record_stream(stream)
+        return self.tensor
+
+
+def pinned_put(
+    device: Union[str, torch.device]
+) -> Callable[[Union[np.ndarray, torch.Tensor]], DeviceCopy]:
+    """A ``put_fn`` for ``device_prefetch`` that moves host arrays (uint8
+    frames) to ``device``.
+
+    On a card, each array is copied into pinned host memory (a host
+    memcpy; the caching host allocator keeps the block until the copy has
+    read it), then to the device with ``non_blocking=True`` on a side
+    stream of its own, and an event marks the copy's end; the consumer
+    takes it with ``DeviceCopy.result()``. A tensor already on the card
+    passes through. Elsewhere the array is moved with ``.to(device)`` and
+    needs no event."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return lambda item: DeviceCopy(torch.as_tensor(item).to(dev), None)
+    side = torch.cuda.Stream(dev)
+
+    def put(item) -> DeviceCopy:
+        host = torch.as_tensor(item)
+        if host.device.type == "cuda":
+            return DeviceCopy(host, None)
+        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        pinned.copy_(host)
+        with torch.cuda.stream(side):
+            out = torch.empty(host.shape, dtype=host.dtype, device=dev)
+            out.copy_(pinned, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(side)
+        return DeviceCopy(out, event)
+
+    return put

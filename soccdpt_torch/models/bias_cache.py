@@ -49,12 +49,21 @@ def build_inference_cache(
     narrower type: it halves the bias reads of BEiT serving, where the
     (H, T, T) bias is the largest thing an attention call reads, at a
     relative perturbation of 2^-9 of the pre-softmax bias. Opt-in: the
-    default keeps f32."""
+    default keeps f32.
+
+    A cache that is current (folded from these parameters at their
+    present versions, in the type asked for) is kept as it is: a second
+    serving fn bound to the model leaves the tensors that a CUDA graph of
+    the first reads in place."""
     with torch.no_grad():
         for mod in _owners(model):
+            if (mod.bias_cache is not None and mod._bias_key == _key(mod)
+                    and getattr(mod, "_bias_cache_dtype", None) == cache_dtype):
+                continue
             bias = mod.compute_bias()
             mod.bias_cache = bias if cache_dtype is None else bias.to(cache_dtype)
             mod._bias_key = _key(mod)
+            mod._bias_cache_dtype = cache_dtype
     return model
 
 
