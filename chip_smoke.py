@@ -33,11 +33,12 @@ Phases, each of which fails the run on any error:
    from a profile (K5 in bf16 at most three); K5's gradient; times beside the plain version, the
    served modules' own cuDNN chain and the bound; K3's launch plan against
    its neighbouring plans at both decoders' map sizes;
-4. four served configurations at full width and depth, weights from a
+4. five served configurations at full width and depth, weights from a
    numpy seed, 1080x1920 uint8 requests at batch 1 and 2, with and
    without the occupancy grid, through ``make_serving_fn``'s CUDA graphs
    (one a batch size): SOccDPT V3 on the flagship ``dpt_swin2_tiny_256``
-   (K1, K2) and on ``dpt_beit_large_512`` (K6, K2), and SOccDPT V1 (two
+   (K1, K2), on ``dpt_beit_large_512`` (K6, K2) and on the ViT-hybrid
+   ``dpt_hybrid_384`` (K6 12 times a request, K2), and SOccDPT V1 (two
    trunks, K1 24 times a request) and V2 (one trunk, two heads) on the
    flagship. For each, the launch counts are set to 0 just before its
    requests and read just after; the graphs' kernel nodes, read through
@@ -48,7 +49,10 @@ Phases, each of which fails the run on any error:
    device-time profile of each, the host calls a request, the graph's
    nodes, capture time and memory pool, the copy out of the pool and the
    weight check. The flagship also loads other weights after a graph
-   request, which must then equal a freshly bound serving fn's. The BEiT
+   request, which must then equal a freshly bound serving fn's; the
+   flagship's V3 and V1 serve a request after ``model.train()``, which
+   must give bit for bit what the request before it gave, with no
+   recapture and the BatchNorm statistics untouched. The BEiT
    path also serves one request through the real 3-D occupancy head and
    one with its folded biases stored in bf16;
 4b. ``serve_stream`` on the flagship, bf16, batch 1, with and without the
@@ -81,8 +85,21 @@ Phases, each of which fails the run on any error:
    occupied, the step time and a profile of one step;
 7. the timing CLIs: ``python -m soccdpt_torch.cli.bench`` (through its
    ``main``), ``eval_timing --contract full`` and ``--contract occ`` for the
-   four served configurations, ``eval_patchwise`` on the flagship at batch
-   1, 2 and 4 and patch-wise 1.0, 0.5 and 0.25 (any error row fails).
+   five served configurations, ``eval_patchwise`` on the flagship at batch
+   1, 2 and 4 and patch-wise 1.0, 0.5 and 0.25 (any error row fails);
+8. the training and eval CLIs on a BDD fixture tree of 2 x 10 frames at
+   1920x1080: ``soccdpt_torch.cli.train`` on the flagship (its published
+   sweep file with ``load`` set to a reference-layout ``.pth`` written from
+   a seeded model by ``reference_state_dict``, the inverse of the reader;
+   every leaf must land and equal the source; six steps with the host
+   thread, then six without it, for the loop's period), then
+   ``soccdpt_torch.cli.eval`` on the checkpoint the first run wrote (four
+   panels, finite metrics, the FPS line), then the training CLI on
+   ``dpt_hybrid_384`` from its published sweep file as it is (batch 2,
+   ``amp``, encoder 0.5, patch-wise 0.5), four steps, after one f32 loss
+   and its gradients on the card against the CPU's; K6 12 times a patch
+   step's forward and K7 once for each ViT block its backward runs
+   through; step times, a profile of one step, peak memory.
 
 It prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -348,14 +365,15 @@ def phase_k1(torch, F, wa, sass):
 # (B, H, T, d): beitl16_512 at batch 1 and 2 (the training step's), the
 # 384-px base models at batch 2, and the test config's ragged tiles
 K6_CHECKS = [(1, 16, 1025, 64), (2, 16, 1025, 64), (2, 12, 577, 64), (2, 2, 65, 16)]
-# timed: (label, (B, H, T, d), bias dtype name or None), 24 launches per bf16 forward
+# timed: (label, (B, H, T, d), bias dtype name or None, launches per bf16
+# forward: one a block); the hybrid's ViT-B at batch 2, its training batch
 K6_FORWARDS = [
-    ("beitl16_512, f32 bias", (1, 16, 1025, 64), "float32"),
-    ("beitl16_512, bf16 bias", (1, 16, 1025, 64), "bfloat16"),
-    ("vitl16_384, no bias", (1, 16, 577, 64), None),
-    ("beitl16_512 at batch 2, f32 bias", (2, 16, 1025, 64), "float32"),
+    ("beitl16_512, f32 bias", (1, 16, 1025, 64), "float32", 24),
+    ("beitl16_512, bf16 bias", (1, 16, 1025, 64), "bfloat16", 24),
+    ("vitl16_384, no bias", (1, 16, 577, 64), None, 24),
+    ("beitl16_512 at batch 2, f32 bias", (2, 16, 1025, 64), "float32", 24),
+    ("vitb_rn50_384 at batch 2, no bias", (2, 12, 577, 64), None, 12),
 ]
-K6_LAUNCHES_PER_FORWARD = 24
 
 
 def k6_inputs(torch, B, H, T, d, bias_dtype, dtype, seed, n_bias=1):
@@ -403,14 +421,14 @@ def phase_k6(torch, F, ga, sass):
     # One bf16 batch-1 forward is 24 launches, each block with a bias of its
     # own, so no launch finds its bias in L2: three distinct biases in turn.
     forwards = []
-    for label, (B, H, T, d), bias_name in K6_FORWARDS:
+    for label, (B, H, T, d), bias_name, n in K6_FORWARDS:
         bias_dtype = getattr(torch, bias_name) if bias_name else None
         q, k, v, biases = k6_inputs(torch, B, H, T, d, bias_dtype, torch.bfloat16, seed=9,
                                     n_bias=3)
         scale = d ** -0.5
         # the library yardstick needs the mask in q's dtype, cast beforehand
         masks = [None if b is None else b.to(q.dtype)[None] for b in biases]
-        per_forward = K6_LAUNCHES_PER_FORWARD / len(biases)
+        per_forward = n / len(biases)
         t = {
             "ms": per_forward * cuda_ms(torch, lambda: [
                 ga.global_attention(q, k, v, b, scale) for b in biases]),
@@ -421,15 +439,15 @@ def phase_k6(torch, F, ga, sass):
                 for m in masks]),
         }
         nbytes, flops = k6_bytes_flops(B, H, T, d, 2, biases[0].element_size() if bias_name else 0)
-        byte_ms = K6_LAUNCHES_PER_FORWARD * nbytes / HBM_BYTES_PER_S * 1e3
-        flop_ms = K6_LAUNCHES_PER_FORWARD * flops / PEAK_FLOPS["bfloat16"] * 1e3
+        byte_ms = n * nbytes / HBM_BYTES_PER_S * 1e3
+        flop_ms = n * flops / PEAK_FLOPS["bfloat16"] * 1e3
         forwards.append({"forward": label, "shape": [B, H, T, d], "bias": bias_name,
-                         **t,
-                         "bytes": K6_LAUNCHES_PER_FORWARD * nbytes,
-                         "flops": K6_LAUNCHES_PER_FORWARD * flops,
+                         "launches_per_forward": n, **t,
+                         "bytes": n * nbytes,
+                         "flops": n * flops,
                          "bound_ms": max(byte_ms, flop_ms),
                          "bound_by": "bytes" if byte_ms >= flop_ms else "operations"})
-        log(f"K6 time, 24 launches, bf16, {label}: kernel {t['ms']:.4f} ms, plain "
+        log(f"K6 time, {n} launches, bf16, {label}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
             f"{max(byte_ms, flop_ms):.4f} ms ({forwards[-1]['bound_by']}): "
             f"{max(byte_ms, flop_ms) / t['ms']:.1%} of the roofline")
@@ -464,11 +482,13 @@ def phase_k6(torch, F, ga, sass):
 # (B, H, T, d, with a bias): beitl16_512 at batch 1 and 2 (dbias sums the
 # images), vitl16_384 without a bias, and the test config's ragged tiles
 K7_CHECKS = [(1, 16, 1025, 64, True), (2, 16, 1025, 64, True), (1, 16, 577, 64, False),
-             (2, 2, 65, 16, True)]
+             (2, 12, 577, 64, False), (2, 2, 65, 16, True)]
+# (label, (B, H, T, d), bias dtype name or None, launches per bf16 backward)
 K7_BACKWARDS = [
-    ("beitl16_512, f32 bias", (1, 16, 1025, 64), "float32"),
-    ("vitl16_384, no bias", (1, 16, 577, 64), None),
-    ("beitl16_512 at batch 2, f32 bias", (2, 16, 1025, 64), "float32"),
+    ("beitl16_512, f32 bias", (1, 16, 1025, 64), "float32", 24),
+    ("vitl16_384, no bias", (1, 16, 577, 64), None, 24),
+    ("beitl16_512 at batch 2, f32 bias", (2, 16, 1025, 64), "float32", 24),
+    ("vitb_rn50_384 at batch 2, no bias", (2, 12, 577, 64), None, 12),
 ]
 
 
@@ -518,7 +538,7 @@ def phase_k7(torch, F, ga, sass):
     # own: three distinct biases in turn, as for K6. K7 alone is timed: the
     # output and the row statistics come from a forward made beforehand.
     backwards = []
-    for label, (B, H, T, d), bias_name in K7_BACKWARDS:
+    for label, (B, H, T, d), bias_name, n in K7_BACKWARDS:
         bias_dtype = getattr(torch, bias_name) if bias_name else None
         q, k, v, biases = k6_inputs(torch, B, H, T, d, bias_dtype, torch.bfloat16, seed=29,
                                     n_bias=3)
@@ -526,7 +546,7 @@ def phase_k7(torch, F, ga, sass):
                         generator=torch.Generator(device="cuda").manual_seed(49)).bfloat16()
         scale = d ** -0.5
         fwd = [ga.global_attention_with_lse(q, k, v, b, scale) for b in biases]
-        per_backward = K6_LAUNCHES_PER_FORWARD / len(biases)
+        per_backward = n / len(biases)
         # the library yardstick: autograd through SDPA, mask cast beforehand.
         # Its forward runs on a stream of its own, so that autograd runs the
         # backward there and the backward alone is captured and replayed
@@ -560,14 +580,15 @@ def phase_k7(torch, F, ga, sass):
                 ga._launch_backward(q, k, v, b, o, l, g, scale, b is not None, img=n)
                 for b, (o, l) in zip(biases, fwd)], iters=5) for n in (1, 2)}
         nbytes, flops = k7_bytes_flops(B, H, T, d, 2, biases[0].element_size() if bias_name else 0)
-        byte_ms = K6_LAUNCHES_PER_FORWARD * nbytes / HBM_BYTES_PER_S * 1e3
-        flop_ms = K6_LAUNCHES_PER_FORWARD * flops / PEAK_FLOPS["bfloat16"] * 1e3
-        backwards.append({"backward": label, "shape": [B, H, T, d], "bias": bias_name, **t,
-                          "bytes": K6_LAUNCHES_PER_FORWARD * nbytes,
-                          "flops": K6_LAUNCHES_PER_FORWARD * flops,
+        byte_ms = n * nbytes / HBM_BYTES_PER_S * 1e3
+        flop_ms = n * flops / PEAK_FLOPS["bfloat16"] * 1e3
+        backwards.append({"backward": label, "shape": [B, H, T, d], "bias": bias_name,
+                          "launches_per_backward": n, **t,
+                          "bytes": n * nbytes,
+                          "flops": n * flops,
                           "bound_ms": max(byte_ms, flop_ms),
                           "bound_by": "bytes" if byte_ms >= flop_ms else "operations"})
-        log(f"K7 time, 24 launches, bf16, {label}: kernel {t['ms']:.4f} ms, plain "
+        log(f"K7 time, {n} launches, bf16, {label}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, sdpa backward {t['library_ms']:.4f} ms by graph replay "
             f"({t['library_ms_as_launched']:.4f} ms as launched), bound "
             f"{max(byte_ms, flop_ms):.4f} ms ({backwards[-1]['bound_by']}): "
@@ -1419,6 +1440,10 @@ SERVED = {
     "swin_v2": {"model_type": "dpt_swin2_tiny_256", "version": 2, "parity_batch": 2,
                 "latency_reps": 10,
                 "per_request": {"window_attention": 12, "global_attention": 0}},
+    # the ViT-hybrid: a ResNet50 stem and stages, then 12 ViT-B blocks
+    "hybrid": {"model_type": "dpt_hybrid_384", "version": 3, "parity_batch": 2,
+               "latency_reps": 10,
+               "per_request": {"window_attention": 0, "global_attention": 12}},
 }
 PARITY_ATOL = {"inv_depth": 1e-4, "seg": 1e-4, "points": 5e-3}
 GRID_MISMATCH_LIMIT = 0.01
@@ -1568,6 +1593,34 @@ def weight_reload_check(torch, cfg16, same_weights, label):
         fail(f"{label}: the weight load made {served.recaptures} recaptures, expected 1")
     if not out["inv_depth_moved_by"] > 0:
         fail(f"{label}: the request after the weight load served the old weights")
+    return out
+
+
+def train_mode_check(torch, cfg16, same_weights, label):
+    """A graph request, ``model.train()``, the same request again: bit for
+    bit what was served before (the grid by its mass: K2's atomics add in
+    an order the card chooses), no recapture, the BatchNorm statistics as
+    they were, and the model left in training mode."""
+    from soccdpt_torch.serving import make_serving_fn
+
+    model = same_weights(cfg16)
+    served = make_serving_fn(cfg16, model, compute_occ=True)
+    frame = frames_u8(torch, 1, 3100)
+    first = served(frame)
+    stats = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
+    model.train()
+    second = served(frame)
+    torch.cuda.synchronize()
+    moved = [n for n, b in model.named_buffers() if n in stats and not torch.equal(b, stats[n])]
+    out = {"against_eval_mode": compare_served(torch, second, first, f"{label} after train()"),
+           "recaptures": served.recaptures, "batch_norm_buffers": len(stats),
+           "batch_norm_buffers_moved": moved,
+           "left_in_training_mode": all(m.training for m in model.modules())}
+    log(f"{label} a graph request after model.train(): {out}")
+    if not all(v["bit_equal"] for k, v in out["against_eval_mode"].items() if k != "grid"):
+        fail(f"{label}: a request after model.train() served other outputs")
+    if served.recaptures or moved or not stats or not out["left_in_training_mode"]:
+        fail(f"{label}: model.train() between two requests: {out}")
     return out
 
 
@@ -1810,6 +1863,8 @@ def phase_serving(torch, card, label):
 
     if label == "swin":
         record["weight_reload"] = weight_reload_check(torch, cfg16, same_weights, label)
+    if label in ("swin", "swin_v1"):
+        record["train_mode"] = train_mode_check(torch, cfg16, same_weights, label)
 
     # the served frames' own segment-sum problems for K2: a batch-2 request
     # and its first frame alone, the values the served (B, N, C) views
@@ -2035,8 +2090,8 @@ def phase_stream(torch, card):
 
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "batch", "hz_std", "ms_per_forward",
               "ms_std", "raw_net_hz", "raw_net_ms", "device")
-TIMED_SERVED = ((["dpt_swin2_tiny_256", "dpt_beit_large_512"], 3), (["dpt_swin2_tiny_256"], 1),
-                (["dpt_swin2_tiny_256"], 2))
+TIMED_SERVED = ((["dpt_swin2_tiny_256", "dpt_beit_large_512", "dpt_hybrid_384"], 3),
+                (["dpt_swin2_tiny_256"], 1), (["dpt_swin2_tiny_256"], 2))
 PATCHWISE_ARGS = ["-t", "dpt_swin2_tiny_256", "-v", "3", "--batch_sizes", "1", "2", "4",
                   "--patchwise", "1.0", "0.5", "0.25", "--encoder_pct", "0.5"]
 
@@ -2157,32 +2212,20 @@ def loss_and_grads(trainer, batch):
     return float(loss.detach())
 
 
-def phase_training(torch, card, label):
-    from soccdpt_torch.core.config import ModelConfig, TrainConfig
-    from soccdpt_torch.data.synthetic import make_batch
-    from soccdpt_torch.kernels import global_attention as ga
-    from soccdpt_torch.kernels import window_attention as wa
+def f32_parity(torch, label, mcfg, base, batch, record):
+    """One f32 loss of ``batch`` and its gradients on the card against the
+    CPU's through the plain versions, TF32 off (the trainer's first patch
+    mask trainable): the loss to ``TRAIN_LOSS_RTOL``, every leaf's gradient
+    to ``TRAIN_GRAD_REL_LIMIT`` of its norm."""
+    from soccdpt_torch.core.config import TrainConfig
     from soccdpt_torch.train.trainer import Trainer
     from soccdpt_torch.weights import named_flax_params
 
-    spec = TRAINED[label]
-    record = RECORD.setdefault(f"train_{label}", {"model_type": spec["model_type"],
-                                                  "batch": spec["batch"]})
-    counters = {"window_attention": wa.window_attention,
-                "global_attention": ga.global_attention,
-                "global_attention_backward": ga.global_attention_backward}
-    mcfg = ModelConfig(model_type=spec["model_type"], version=spec["version"])
-    net_w, net_h = mcfg.net_size
-    batch = make_batch(0, spec["batch"], (1080, 1920), (net_h, net_w), mcfg.num_classes)
-    base = dict(batch_size=spec["batch"], encoder_percentage=spec["encoder_percentage"],
-                patchwise_percentage=1.0, learning_rate=TRAIN_LR)
-
-    # --- (a) f32: one loss and its gradients, card against CPU, TF32 off ------
     set_tf32(torch, False)
     t0 = time.perf_counter()
     trainer = Trainer(mcfg, TrainConfig(**base))
     trainer.init_state(seed=0)
-    log(f"train {label}: SOccDPT V{mcfg.version} {spec['model_type']} built in "
+    log(f"train {label}: SOccDPT V{mcfg.version} {mcfg.model_type} built in "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{sum(p.numel() for p in trainer.model.parameters()) / 1e6:.1f} M weights, "
         f"{sum(trainer.masks[0].values())} of {len(trainer.masks[0])} leaves trainable")
@@ -2231,6 +2274,29 @@ def phase_training(torch, card, label):
     del trainer, cpu
     torch.cuda.empty_cache()
     set_tf32(torch, True)
+
+
+def phase_training(torch, card, label):
+    from soccdpt_torch.core.config import ModelConfig, TrainConfig
+    from soccdpt_torch.data.synthetic import make_batch
+    from soccdpt_torch.kernels import global_attention as ga
+    from soccdpt_torch.kernels import window_attention as wa
+    from soccdpt_torch.train.trainer import Trainer
+
+    spec = TRAINED[label]
+    record = RECORD.setdefault(f"train_{label}", {"model_type": spec["model_type"],
+                                                  "batch": spec["batch"]})
+    counters = {"window_attention": wa.window_attention,
+                "global_attention": ga.global_attention,
+                "global_attention_backward": ga.global_attention_backward}
+    mcfg = ModelConfig(model_type=spec["model_type"], version=spec["version"])
+    net_w, net_h = mcfg.net_size
+    batch = make_batch(0, spec["batch"], (1080, 1920), (net_h, net_w), mcfg.num_classes)
+    base = dict(batch_size=spec["batch"], encoder_percentage=spec["encoder_percentage"],
+                patchwise_percentage=1.0, learning_rate=TRAIN_LR)
+
+    # --- (a) f32: one loss and its gradients, card against CPU, TF32 off ------
+    f32_parity(torch, label, mcfg, base, batch, record)
 
     # --- (b) the main path: five bf16 steps on that batch, counts from 0 ------
     torch.cuda.synchronize()
@@ -2768,6 +2834,515 @@ def phase_occupancy(torch, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The training and eval CLIs: soccdpt_torch.cli.train and soccdpt_torch.cli.eval
+# ---------------------------------------------------------------------------
+
+CLI_FIXTURE = dict(frames_per_seq=10, width=1920, height=1080, seed=0)
+CLI_SWIN_SWEEP = "config/SOccDPT_V3_dpt_swin2_tiny_256.json"
+CLI_HYBRID_SWEEP = "config/SOccDPT_V3_dpt_hybrid_384.json"
+CLI_SWIN_STEPS, CLI_HYBRID_STEPS = 6, 4
+# the step of a run (0-based) whose device time is profiled; an eval round
+# follows it, so it lies in no interval the loop's period is read from
+CLI_PROFILED_STEP = 2
+CLI_EVAL_SAMPLES = 4
+
+
+def cli_args(tree, sweep, model_type, steps, run_dir, *extra):
+    return ["-v", "3", "-dt", "bdd", "-t", model_type, "-b", tree, "--sweep_json", sweep,
+            "--count", "1", "--max_steps", str(steps), "-c", str(run_dir / "checkpoints"),
+            "--log_dir", str(run_dir / "logs"), *extra]
+
+
+def run_train_cli(torch, tcli, args, counters):
+    """``tcli.main(args)`` with every ``Trainer.train_step`` of the run timed
+    (ending in a synchronize) and its launch counts read around it, one step
+    profiled; returns (results, steps, profile rows, seconds, the trainer's
+    patch masks)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from soccdpt_torch.train.trainer import Trainer
+
+    steps, rows, masks = [], [], []
+    orig = Trainer.train_step
+
+    def counted(self, *a, **kw):
+        before = {name: fn.launches for name, fn in counters.items()}
+        torch.cuda.synchronize()
+        profiled = len(steps) == CLI_PROFILED_STEP
+        t0 = time.perf_counter()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = orig(self, *a, **kw)
+                torch.cuda.synchronize()
+            rows.extend((ev.key, ev.device_time_total, ev.count) for ev in device_events(prof))
+        else:
+            out = orig(self, *a, **kw)
+            torch.cuda.synchronize()
+        masks[:] = self.masks
+        steps.append({"start": t0, "ms": (time.perf_counter() - t0) * 1e3, "profiled": profiled,
+                      "patch_steps": len(self.masks),
+                      "launches": {n: fn.launches - before[n] for n, fn in counters.items()}})
+        return out
+
+    Trainer.train_step = counted
+    try:
+        t0 = time.perf_counter()
+        results = tcli.main(args)
+        seconds = time.perf_counter() - t0
+    finally:
+        Trainer.train_step = orig
+    return results, steps, sorted(rows, key=lambda r: -r[1]), seconds, masks
+
+
+def loop_periods(steps, division_step):
+    """ms between the starts of consecutive steps, all of them and those
+    with no eval round between them (one follows every ``division_step``-th
+    step, from step 0)."""
+    starts = [s["start"] for s in steps]
+    gaps = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    return gaps, [g for i, g in enumerate(gaps) if i % division_step]
+
+
+def jsonl_log(run_dir):
+    (path,) = (run_dir / "logs").glob("metrics_*.jsonl")
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def check_cli_run(label, steps, logged, want_steps, per_step):
+    """Every step launched each kernel ``per_step[name]`` times, the losses
+    are finite, one logged a step."""
+    losses = [r["loss"] for r in logged if "loss" in r]
+    if len(steps) != want_steps or len(losses) != want_steps:
+        fail(f"{label}: {len(steps)} steps and {len(losses)} logged losses, expected {want_steps}")
+    if not all(np.isfinite(losses)):
+        fail(f"{label}: a loss is not finite: {losses}")
+    for i, s in enumerate(steps):
+        if any(s["launches"][name] != n for name, n in per_step.items()):
+            fail(f"{label}: step {i} launched {s['launches']}, expected {per_step}")
+    return losses
+
+
+def hybrid_attention_backwards(mask, depth):
+    """The ViT blocks whose attention a patch step's backward runs through
+    (K7 once each): block i's, when a trainable leaf feeds its q, k and v:
+    the ResNet, the patch embedding, the cls token, the position embedding,
+    an earlier block, or its own ``norm1`` and ``qkv``."""
+    trainable = [path.split(".")[2:4] for path, flag in mask.items()
+                 if flag and path.startswith("depth_net.backbone.")]
+    below = any(name.startswith(("stem_", "stage", "patch_embed_proj", "cls_token", "pos_embed"))
+                for name, *_ in trainable)
+    reached = 0
+    for i in range(depth):
+        block = [rest for name, *rest in trainable if name == f"block{i}"]
+        reached += below or any(rest[:1] in (["norm1"], ["qkv"]) for rest in block)
+        below = below or bool(block)
+    return reached
+
+
+def summarize_cli_run(label, record, steps, rows, seconds, card):
+    median = float(np.median([s["ms"] for s in steps[1:] if not s["profiled"]]))
+    device_ms = sum(us for _, us, _ in rows) / 1e3
+    record.update({
+        "run_seconds": seconds, "step_ms": [s["ms"] for s in steps],
+        "median_step_ms_from_step_2": median, "launches_per_step": steps[0]["launches"],
+        "patch_steps_per_step": steps[0]["patch_steps"], "device_ms_per_step": device_ms,
+        "cuda_launches_per_step": sum(c for _, _, c in rows), "busy_share_of_step": device_ms / median,
+        "profile_us_per_step": [{"name": k[:120], "device_us": us, "calls": c}
+                                for k, us, c in rows[:40]]})
+    log(f"{label} ({card}): {seconds:.1f} s; steps {[round(s['ms'], 1) for s in steps]} ms, "
+        f"median {median:.2f} from step 2 on; one profiled step {device_ms:.3f} ms of device "
+        f"time in {record['cuda_launches_per_step']} launches (busy {device_ms / median:.3f}); "
+        f"launches a step {steps[0]['launches']}; top device time:")
+    for k, us, c in rows[:10]:
+        log(f"  {us:9.1f} us  x{c:5d}  {k[:90]}")
+
+
+def cli_swin(torch, card, tcli, ti, tree, tmp, counters, record):
+    """The flagship from a reference-layout ``.pth`` through the sweep's
+    ``load``; the run with the host thread (the CLI's default) is the main
+    path, then the same run with batches read on the loop's thread."""
+    from soccdpt_torch.core.checkpoint import restore_checkpoint
+    from soccdpt_torch.core.config import ModelConfig, TrainConfig
+    from soccdpt_torch.models.soccdpt import build_model
+    from soccdpt_torch.weights import to_jax_variables
+
+    source = build_model(ModelConfig(model_type="dpt_swin2_tiny_256", version=3),
+                         device="cuda", seed=7)
+    variables = to_jax_variables(source)
+    del source
+    sd = reference_state_dict(variables, 3, "swin")
+    pth = tmp / "reference.pth"
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()},
+                "optimizer": {"state": {}, "param_groups": []}}, pth)
+    with open(HERE / CLI_SWIN_SWEEP) as fh:
+        sweep = json.load(fh)
+    sweep["parameters"]["load"] = {"values": [str(pth)]}
+    sweep["parameters"]["epochs"] = {"values": [1]}
+    sweep_path = tmp / "sweep_swin.json"
+    sweep_path.write_text(json.dumps(sweep))
+
+    loads = []
+    orig_load = ti.load_imported
+
+    def spy(model, params, stats, verbose=True):
+        reports = orig_load(model, params, stats, verbose)
+        got = {coll: ti.flat_paths(tree) for coll, tree in to_jax_variables(model).items()}
+        diff = [f"{coll}:{'/'.join(path)}" for coll in ("params", "batch_stats")
+                for path, w in ti.flat_paths(variables[coll]).items()
+                if not np.array_equal(got[coll][path], w)]
+        loads.append({coll: {"loaded": r["loaded"], "total": r["total"],
+                             "unused": len(r["unused"]), "mismatched": len(r["mismatched"])}
+                      for coll, r in reports.items()} | {"leaves_unequal": diff})
+        return reports
+
+    runs = {}
+    ti.load_imported = spy
+    try:
+        for name, extra in (("host_thread", []), ("serial", ["--host_prefetch", "0"])):
+            run_dir = tmp / f"swin_{name}"
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            runs[name] = run_train_cli(torch, tcli, cli_args(
+                str(tree), str(sweep_path), "dpt_swin2_tiny_256", CLI_SWIN_STEPS, run_dir, *extra),
+                counters)[:4]
+            runs[name] += ({n: fn.launches for n, fn in counters.items()}, jsonl_log(run_dir))
+    finally:
+        ti.load_imported = orig_load
+    (results, steps, rows, seconds, launches, logged) = runs["host_thread"]
+    if len(loads) != 2 or any(
+            r[c]["loaded"] != r[c]["total"] or r[c]["unused"] or r[c]["mismatched"]
+            for r in loads for c in ("params", "batch_stats")) or any(r["leaves_unequal"] for r in loads):
+        fail(f"train_cli_swin: the .pth did not land every leaf: {loads}")
+    losses = check_cli_run("train_cli_swin", steps, logged, CLI_SWIN_STEPS,
+                           {"window_attention": 12 * steps[0]["patch_steps"],
+                            "global_attention": 0, "global_attention_backward": 0,
+                            "segment_sum": 0})
+    evals = [r for r in logged if any(k.startswith("val/") for k in r)]
+    if not evals or not all(np.isfinite(v) for v in results[0].values()):
+        fail(f"train_cli_swin: the eval rounds gave {results}")
+    ckpt_path = (tmp / "swin_host_thread" / "checkpoints" / "SOccDPT_V3_dpt_swin2_tiny_256_bdd"
+                 / "trial000" / "checkpoint_epoch_1")
+    ckpt = restore_checkpoint(str(ckpt_path))
+    if ckpt["step"] != CLI_SWIN_STEPS or set(ckpt) != {"params", "batch_stats", "opt_state", "step"}:
+        fail(f"train_cli_swin: the checkpoint holds {sorted(ckpt)}, step {ckpt.get('step')}")
+    # the CLI's eval rounds: every len(train) // (3 * batch) steps, from step 0
+    n = 2 * CLI_FIXTURE["frames_per_seq"]
+    batch = sweep["parameters"]["batch_size"]["values"][0]
+    division = max((n - max(1, int(n * sweep["parameters"]["val_percent"]["values"][0])))
+                   // (3 * batch), 1)
+    periods = {}
+    for name, (_, st, _, _, _, _) in runs.items():
+        gaps, clean = loop_periods(st, division)
+        # both runs hold the same eval rounds: the mean over the run compares them
+        periods[name] = {"ms": gaps, "no_eval_round_ms": clean, "mean_ms": float(np.mean(gaps)),
+                         "step_ms": [s["ms"] for s in st],
+                         "median_step_ms_from_step_2": float(np.median(
+                             [s["ms"] for s in st[1:] if not s["profiled"]]))}
+    # what the loop's thread reads a step: one batch of 1080p samples
+    dataset, _, _ = tcli.build_datasets(TrainConfig(dataset="bdd", base_path=str(tree)),
+                                        "dpt_swin2_tiny_256")
+    t0 = time.perf_counter()
+    for i in range(batch):
+        dataset[i]
+    read_ms = (time.perf_counter() - t0) * 1e3
+    record.update({"load": loads, "losses": losses, "eval_rounds": evals,
+                   "last_eval": results[0], "loop_periods": periods,
+                   "host_read_ms_a_batch": read_ms,
+                   "launches_run": launches, "checkpoint": str(ckpt_path.name)})
+    summarize_cli_run("train_cli_swin", record, steps, rows, seconds, card)
+    log(f"train_cli_swin: .pth loads {loads}; losses {[round(x, 4) for x in losses]}; last eval "
+        f"{results[0]}; the loop's period, host thread / serial: mean over the run "
+        f"{periods['host_thread']['mean_ms']:.1f} / {periods['serial']['mean_ms']:.1f} ms, without "
+        f"an eval round between two steps {periods['host_thread']['no_eval_round_ms']} / "
+        f"{periods['serial']['no_eval_round_ms']} ms; the step alone (median) "
+        f"{periods['host_thread']['median_step_ms_from_step_2']:.1f} / "
+        f"{periods['serial']['median_step_ms_from_step_2']:.1f} ms; reading a batch of {batch} "
+        f"on the host {read_ms:.1f} ms ({card})")
+    return launches, ckpt_path
+
+
+def cli_hybrid(torch, card, tcli, tree, tmp, counters, record):
+    """``dpt_hybrid_384`` from its published sweep file: first one f32 loss
+    and its gradients, card against CPU; then the CLI's steps."""
+    from soccdpt_torch.core.config import ModelConfig
+    from soccdpt_torch.data.synthetic import make_batch
+
+    with open(HERE / CLI_HYBRID_SWEEP) as fh:
+        params = {k: v["values"][0] for k, v in json.load(fh)["parameters"].items()}
+    base = dict(batch_size=params["batch_size"], encoder_percentage=params["encoder_percentage"],
+                patchwise_percentage=params["patchwise_percentage"],
+                learning_rate=params["learning_rate"])
+    mcfg = ModelConfig(model_type="dpt_hybrid_384", version=3)
+    # the CLI's input: a 1080p frame at 384 high, aspect kept, multiple of 32
+    batch = make_batch(0, base["batch_size"], (1080, 1920), (384, 672), mcfg.num_classes)
+    f32_parity(torch, "train_cli_hybrid", mcfg, base, batch, record)
+
+    run_dir = tmp / "hybrid"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    results, steps, rows, seconds, masks = run_train_cli(torch, tcli, cli_args(
+        str(tree), str(HERE / CLI_HYBRID_SWEEP), "dpt_hybrid_384", CLI_HYBRID_STEPS, run_dir),
+        counters)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    logged = jsonl_log(run_dir)
+    depth = 12
+    per_step = {"window_attention": 0, "segment_sum": 0,
+                "global_attention": depth * len(masks),
+                "global_attention_backward": sum(hybrid_attention_backwards(m, depth)
+                                                 for m in masks)}
+    losses = check_cli_run("train_cli_hybrid", steps, logged, CLI_HYBRID_STEPS, per_step)
+    if not all(np.isfinite(v) for v in results[0].values()):
+        fail(f"train_cli_hybrid: the eval rounds gave {results}")
+    record.update({"sweep": CLI_HYBRID_SWEEP, "trial": params, "losses": losses,
+                   "per_step_expected": per_step,
+                   "last_eval": results[0], "launches_run": launches,
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    summarize_cli_run("train_cli_hybrid", record, steps, rows, seconds, card)
+    log(f"train_cli_hybrid: losses {[round(x, 4) for x in losses]}; last eval {results[0]}; "
+        f"peak memory {record['peak_memory_gb']:.2f} GB")
+    return launches
+
+
+def cli_eval(torch, card, tree, tmp, ckpt, counters, record):
+    """``soccdpt_torch.cli.eval`` on the flagship checkpoint the training
+    CLI wrote."""
+    import contextlib
+    import io
+
+    from soccdpt_torch.cli import eval as ecli
+
+    media = tmp / "media"
+    for fn in counters.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        metrics = ecli.main(["-v", "3", "-dt", "bdd", "-t", "dpt_swin2_tiny_256", "-b", str(tree),
+                             "-l", str(ckpt), "--num_samples", str(CLI_EVAL_SAMPLES),
+                             "--media_dir", str(media)])
+    seconds = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    out = buf.getvalue()
+    panels = sorted((media / "dpt_swin2_tiny_256_bdd_v3").glob("sample_*.png"))
+    fps = [line for line in out.splitlines() if line.startswith("FPS")]
+    record.update({"metrics": metrics, "panels": len(panels), "fps_line": fps,
+                   "seconds": seconds, "launches_run": launches})
+    log(f"eval_cli_swin ({card}): {seconds:.1f} s; {len(panels)} panels; {fps}; {metrics}")
+    if len(panels) != CLI_EVAL_SAMPLES or len(fps) != 1 or not all(
+            np.isfinite(v) for v in metrics.values()):
+        fail(f"eval_cli_swin: {len(panels)} panels, FPS line {fps}, metrics {metrics}")
+    if launches["window_attention"] < 1:
+        fail("eval_cli_swin: K1 was launched no time")
+    return launches
+
+
+def phase_train_eval_clis(torch, card):
+    """``soccdpt_torch.cli.train`` and ``soccdpt_torch.cli.eval`` at full
+    width on a BDD fixture tree of 2 x 10 frames at 1920x1080: the flagship
+    from a reference-layout ``.pth``, ``dpt_hybrid_384`` from its published
+    sweep file, the eval CLI on the flagship's checkpoint. Each run's launch
+    counts are set to 0 just before it and read just after; returns them by
+    path."""
+    import os
+    import tempfile
+
+    from soccdpt_torch.cli import train as tcli
+    from soccdpt_torch.core import torch_import as ti
+    from soccdpt_torch.data import synthetic
+
+    counters = occ_counters()
+    cwd = os.getcwd()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="clis_") as tmp_name:
+        tmp = Path(tmp_name)
+        tree = tmp / "bdd"
+        t0 = time.perf_counter()
+        synthetic.make_bdd_fixture(str(tree), **CLI_FIXTURE)
+        log(f"clis: fixture tree, 2 sequences x {CLI_FIXTURE['frames_per_seq']} frames at "
+            f"1920x1080, written in {time.perf_counter() - t0:.1f} s")
+        os.chdir(tmp)
+        try:
+            with phase("training CLI dpt_swin2_tiny_256"):
+                record = RECORD.setdefault("train_cli_swin", {"sweep": CLI_SWIN_SWEEP})
+                launches["train_cli_swin"], ckpt = cli_swin(
+                    torch, card, tcli, ti, tree, tmp, counters, record)
+            torch.cuda.empty_cache()
+            with phase("eval CLI dpt_swin2_tiny_256"):
+                launches["eval_cli_swin"] = cli_eval(
+                    torch, card, tree, tmp, ckpt, counters, RECORD.setdefault("eval_cli_swin", {}))
+            torch.cuda.empty_cache()
+            with phase("training CLI dpt_hybrid_384"):
+                launches["train_cli_hybrid"] = cli_hybrid(
+                    torch, card, tcli, tree, tmp, counters,
+                    RECORD.setdefault("train_cli_hybrid", {}))
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Reference-layout torch checkpoints: the inverse of core/torch_import.py
+# ---------------------------------------------------------------------------
+
+_SWIN_BLOCK_KEYS = {
+    ("attn", "qkv", "kernel"): ("attn.qkv.weight", "dense"),
+    ("attn", "qkv", "bias"): ("attn.qkv.bias", None),
+    ("attn", "rel_pos_table"): ("attn.relative_position_bias_table", None),
+    ("attn", "q_bias"): ("attn.q_bias", None),
+    ("attn", "v_bias"): ("attn.v_bias", None),
+    ("attn", "logit_scale"): ("attn.logit_scale", None),
+    ("attn", "proj", "kernel"): ("attn.proj.weight", "dense"),
+    ("attn", "proj", "bias"): ("attn.proj.bias", None),
+    ("attn", "cpb_mlp_0", "kernel"): ("attn.cpb_mlp.0.weight", "dense"),
+    ("attn", "cpb_mlp_0", "bias"): ("attn.cpb_mlp.0.bias", None),
+    ("attn", "cpb_mlp_1", "kernel"): ("attn.cpb_mlp.2.weight", "dense"),
+}
+_VIT_BLOCK_KEYS = {
+    ("qkv", "kernel"): ("attn.qkv.weight", "dense"),
+    ("qkv", "bias"): ("attn.qkv.bias", None),
+    ("q_bias",): ("attn.q_bias", None),
+    ("v_bias",): ("attn.v_bias", None),
+    ("rel_pos_table",): ("attn.relative_position_bias_table", None),
+    ("proj", "kernel"): ("attn.proj.weight", "dense"),
+    ("proj", "bias"): ("attn.proj.bias", None),
+    ("gamma_1",): ("gamma_1", None),
+    ("gamma_2",): ("gamma_2", None),
+}
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean",
+         "var": "running_var"}
+_HEAD_CONVS = {"conv1": 0, "conv2": 2, "conv3": 4}  # depth head: output_conv.{0,2,4}
+_SEG_HEAD_MODS = {"conv1": 0, "bn": 1, "conv2": 4}  # seg head: conv3x3, BN, conv1x1
+
+
+def _torch_layout(arr, layout):
+    """A flax leaf in torch's layout (the inverse of torch_import's)."""
+    if layout == "dense":
+        return arr.T
+    if layout == "conv":
+        return arr.transpose(3, 2, 0, 1)
+    if layout == "conv_t":  # torch_import._conv_t flips; flip back
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1)
+    return arr
+
+
+def _norm_or_mlp(rest):
+    """(torch name, layout) of a block's norm and MLP leaves, else None."""
+    if rest[0] in ("norm1", "norm2"):
+        return f"{rest[0]}.{_LEAF[rest[1]]}", None
+    if rest[0] in ("mlp_fc1", "mlp_fc2"):
+        return f"mlp.fc{rest[0][-1]}.{_LEAF[rest[1]]}", "dense" if rest[1] == "kernel" else None
+    return None
+
+
+def _backbone_key(path, family):
+    """(torch key under ``pretrained.``, layout) of a backbone leaf."""
+    m = "model."
+    name, rest = path[0], path[1:]
+    leaf = _LEAF.get(path[-1], path[-1])
+    if family == "swin":
+        if name == "patch_embed":
+            return f"{m}patch_embed.proj.{leaf}", "conv" if leaf == "weight" else None
+        if name == "patch_norm":
+            return f"{m}patch_embed.norm.{leaf}", None
+        if name.startswith("stage"):
+            i, j = name[5:].split("_block")
+            key = _SWIN_BLOCK_KEYS.get(rest) or _norm_or_mlp(rest)
+            return f"{m}layers.{i}.blocks.{j}.{key[0]}", key[1]
+        if name.startswith("downsample"):
+            i = name[len("downsample"):]
+            if rest[0] == "reduction":
+                return f"{m}layers.{i}.downsample.reduction.weight", "dense"
+            return f"{m}layers.{i}.downsample.norm.{leaf}", None
+    if name in ("cls_token", "pos_embed"):
+        return m + name, None
+    if name.startswith("block"):
+        key = _VIT_BLOCK_KEYS.get(rest) or _norm_or_mlp(rest)
+        return f"{m}blocks.{name[5:]}.{key[0]}", key[1]
+    if name.startswith("readout"):
+        return f"act_postprocess{name[-1]}.0.project.0.{leaf}", "dense" if leaf == "weight" else None
+    if name.startswith("proj"):
+        return f"act_postprocess{name[-1]}.3.{leaf}", "conv" if leaf == "weight" else None
+    ups = {"up4x": (1, "conv_t"), "up2x": (2, "conv_t"), "down2x": (4, "conv")}
+    if name in ups:
+        lvl, layout = ups[name]
+        return f"act_postprocess{lvl}.4.{leaf}", layout if leaf == "weight" else None
+    if family == "vit" and name == "patch_embed":
+        return f"{m}patch_embed.proj.{leaf}", "conv" if leaf == "weight" else None
+    if family == "hybrid":
+        pe = f"{m}patch_embed."
+        if name == "patch_embed_proj":
+            return f"{pe}proj.{leaf}", "conv" if leaf == "weight" else None
+        if name == "stem_conv":
+            return f"{pe}backbone.stem.conv.weight", "conv"
+        if name == "stem_gn":
+            return f"{pe}backbone.stem.norm.{leaf}", None
+        if name.startswith("stage"):
+            s, b = name[5:].split("_block")
+            blk = f"{pe}backbone.stages.{s}.blocks.{b}."
+            mod = {"downsample_conv": "downsample.conv", "downsample_gn": "downsample.norm",
+                   "gn1": "norm1", "gn2": "norm2", "gn3": "norm3"}.get(rest[0], rest[0])
+            return blk + f"{mod}.{leaf}", "conv" if rest[0].startswith(("conv", "downsample_conv")) else None
+    raise KeyError(f"no reference key for backbone leaf {'/'.join(path)} ({family})")
+
+
+def _dpt_key(path, family, seg_head=False):
+    """(torch key relative to a DPT, layout) of a DPT leaf."""
+    name, leaf = path[0], _LEAF.get(path[-1], path[-1])
+    conv = "conv" if path[-1] == "kernel" else None
+    if name == "backbone":
+        key, layout = _backbone_key(path[1:], family)
+        return "pretrained." + key, layout
+    if name.startswith("layer") and name.endswith("_rn"):
+        return f"scratch.{name}.weight", "conv"
+    if name.startswith("refinenet"):
+        if path[1] == "out_conv":
+            return f"scratch.{name}.out_conv.{leaf}", conv
+        unit = path[1].replace("res_conv_unit", "resConfUnit")
+        return f"scratch.{name}.{unit}.{path[2]}.{leaf}", conv
+    if name == "head":
+        idx = (_SEG_HEAD_MODS if seg_head else _HEAD_CONVS)[path[1]]
+        return f"scratch.output_conv.{idx}.{leaf}", conv
+    raise KeyError(f"no reference key for DPT leaf {'/'.join(path)}")
+
+
+def reference_state_dict(variables, version, family):
+    """A reference-layout state dict (numpy) of a SOccDPT model from its
+    JAX variables tree (``weights.to_jax_variables`` of a port model, or
+    the JAX package's own): the keys and layouts that
+    ``core/torch_import.py::import_soccdpt`` reads, every leaf of the tree
+    written once. The 3-D occupancy head has no reference keys."""
+    sd = {}
+    for coll in ("params", "batch_stats"):
+        stack = [((), variables.get(coll, {}))]
+        while stack:
+            path, node = stack.pop()
+            if isinstance(node, dict):
+                stack += [(path + (k,), v) for k, v in node.items()]
+                continue
+            top, rest = path[0], path[1:]
+            if top == "occupancy_conv":
+                continue
+            if top in ("depth_net", "seg_net", "pretrained"):
+                key, layout = _dpt_key(rest, family, seg_head=(top == "seg_net"))
+            elif top == "seg_head":
+                key, layout = f"{_SEG_HEAD_MODS[rest[0]]}.{_LEAF[rest[-1]]}", (
+                    "conv" if rest[-1] == "kernel" else None)
+            elif top == "depth_head":
+                key, layout = f"{_HEAD_CONVS[rest[0]]}.{_LEAF[rest[-1]]}", (
+                    "conv" if rest[-1] == "kernel" else None)
+            else:
+                raise KeyError(f"no reference key for {'/'.join(path)}")
+            if version == 2 and top == "seg_head":
+                top = "seg_ead"  # the reference's own spelling of V2's seg head
+            sd[f"{top}.{key}"] = np.ascontiguousarray(_torch_layout(np.asarray(node), layout))
+    return sd
+
+
 def main():
     if not (HERE / "soccdpt_torch").is_dir():
         fail("soccdpt_torch/ is not beside this script: run it from a checkout of the repo")
@@ -2813,7 +3388,8 @@ def main():
     for label, name in (("swin", "serving dpt_swin2_tiny_256"),
                         ("beit", "serving dpt_beit_large_512"),
                         ("swin_v1", "serving V1 dpt_swin2_tiny_256"),
-                        ("swin_v2", "serving V2 dpt_swin2_tiny_256")):
+                        ("swin_v2", "serving V2 dpt_swin2_tiny_256"),
+                        ("hybrid", "serving dpt_hybrid_384")):
         set_tf32(torch, False)
         with phase(name):
             path_launches[f"serve_{label}"], served_problem = phase_serving(torch, card, label)
@@ -2841,6 +3417,13 @@ def main():
     with phase("bench, eval_timing, eval_patchwise"):
         phase_clis(torch, card)
     torch.cuda.empty_cache()
+    path_launches.update(phase_train_eval_clis(torch, card))
+    torch.cuda.empty_cache()
+    for path, name in (("train_cli_swin", "window_attention"),
+                       ("train_cli_hybrid", "global_attention"),
+                       ("train_cli_hybrid", "global_attention_backward")):
+        if path_launches[path][name] < 1:
+            fail(f"{name} was launched no time on {path}")
     del served_problem
     # each kernel's time inside a served request, from the profile of the
     # configuration whose attention it is (K2: the flagship's), and inside a

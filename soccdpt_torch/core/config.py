@@ -1,16 +1,22 @@
-"""Configuration dataclasses: camera, occupancy grid, model and training.
+"""Configuration dataclasses: camera, occupancy grid, model and training,
+and the reference's sweep files.
 
 The port's own copy of ``soccdpt_tpu/core/config.py``'s ``CameraConfig``,
-``OccupancyConfig``, ``GT_OCCUPANCY``, ``MODEL_TYPES``, ``ModelConfig`` and
-``TrainConfig``, so the port never imports the JAX package. Field names and defaults are
-the same, so a config built for one package reads the same in the other.
+``OccupancyConfig``, ``GT_OCCUPANCY``, ``MODEL_TYPES``, ``ModelConfig``,
+``TrainConfig``, ``SweepConfig`` and ``train_config_from_params``, so the
+port never imports the JAX package. Field names and defaults are the same,
+so a config built for one package reads the same in the other.
 """
 from __future__ import annotations
 
+import dataclasses
+import itertools
+import json
 import math
 import os
+import random
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 _CAMERA_KEYS = ("fx", "fy", "cx", "cy", "width", "height", "k1", "k2", "p1", "p2", "k3")
 
@@ -162,7 +168,7 @@ class TrainConfig:
     JAX package's ``TrainConfig``. Its ``mesh_shape``, ``mesh_axes``, ``tp``
     and ``tp_min_size`` are left out: the port trains on one card so far,
     and data and tensor parallelism are still to be ported (ROADMAP.md,
-    queue 1 item 14)."""
+    queue 1)."""
 
     epochs: int = 15
     batch_size: int = 3
@@ -195,3 +201,84 @@ class TrainConfig:
     remat_backbone: bool = False  # recompute backbone blocks in the backward
     log_histograms: bool = False  # per-leaf weight stats at eval rounds
     log_visuals: bool = True  # eval-round visualization panels
+
+
+def dataclass_replace(cfg, **kw):
+    return dataclasses.replace(cfg, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Sweep-JSON interop (reference config/*.json schema)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SweepConfig:
+    """Parsed reference sweep JSON: ``{"method": "grid"|"random",
+    "metric": {...}, "parameters": {name: {"values": [...]}}}``."""
+
+    method: str
+    metric: Dict[str, Any]
+    parameters: Dict[str, List[Any]]
+
+    @classmethod
+    def load(cls, path: str) -> "SweepConfig":
+        with open(path, "r") as fh:
+            raw = json.load(fh)
+        params = {}
+        for name, spec in raw.get("parameters", {}).items():
+            if isinstance(spec, dict) and "values" in spec:
+                params[name] = list(spec["values"])
+            elif isinstance(spec, dict) and "value" in spec:
+                params[name] = [spec["value"]]
+            else:
+                params[name] = [spec]
+        return cls(
+            method=raw.get("method", "grid"),
+            metric=raw.get("metric", {}),
+            parameters=params,
+        )
+
+    def override(self, **kw) -> None:
+        for name, value in kw.items():
+            self.parameters[name] = [value]
+
+    def trials(self, count: Optional[int] = None, seed: int = 0) -> Iterator[Dict[str, Any]]:
+        """Yield flat hyperparameter dicts: full cartesian product for
+        ``grid``, independent uniform draws for ``random``."""
+        names = sorted(self.parameters)
+        if self.method == "random":
+            rng = random.Random(seed)
+            n = count if count is not None else 1
+            for _ in range(n):
+                yield {k: rng.choice(self.parameters[k]) for k in names}
+        else:
+            combos = itertools.product(*(self.parameters[k] for k in names))
+            for i, combo in enumerate(combos):
+                if count is not None and i >= count:
+                    return
+                yield dict(zip(names, combo))
+
+
+def train_config_from_params(params: Dict[str, Any]) -> TrainConfig:
+    """Build a TrainConfig from a sweep-trial dict, ignoring unknown keys.
+    The JAX package's parallelism keys (``mesh_shape``, ``mesh_axes``,
+    ``tp_min_size``) are ignored with them; a ``tp`` above 1 raises, since
+    tensor parallelism is not ported (ROADMAP.md, queue 1, ``parallel/``)."""
+    if int(params.get("tp", 1)) > 1:
+        raise NotImplementedError(
+            f"tp={params['tp']}: tensor parallelism (the JAX package's parallel/) is "
+            "not ported to soccdpt_torch yet (ROADMAP.md, queue 1)"
+        )
+    known = {f.name for f in dataclasses.fields(TrainConfig)}
+    kw: Dict[str, Any] = {}
+    for k, v in params.items():
+        if k not in known:
+            continue
+        if k == "loss_weights":
+            kw[k] = tuple(float(x) for x in v)
+        elif k in ("load", "load_depth", "load_seg") and isinstance(v, bool):
+            kw[k] = None if not v else kw.get(k)
+        else:
+            kw[k] = v
+    return TrainConfig(**kw)

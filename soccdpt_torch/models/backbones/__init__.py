@@ -1,4 +1,4 @@
-"""Backbone registry (the Swin-V2 and ViT/BEiT families so far).
+"""Backbone registry (the Swin-V2, ViT/BEiT and ViT-hybrid families so far).
 
 Every backbone is a module whose ``forward(x_nhwc, generator=None)``
 returns the tuple of stage feature maps, NHWC; ``generator`` feeds what a
@@ -14,6 +14,7 @@ VIT_NAMES = (
     "vitb16_384", "vitl16_384", "beitb16_384", "beitl16_384", "beitl16_512",
     "vittest_64", "beittest_64",
 )
+HYBRID_NAMES = ("vitb_rn50_384", "hybridtest_64")
 
 
 def make_backbone(
@@ -23,8 +24,10 @@ def make_backbone(
     remat: bool = False,
 ):
     """Return (backbone module factory, stage channel widths). ``remat``
-    recomputes each Swin-V2 block in the backward pass; the ViT/BEiT trunk
-    takes none, as in the JAX package."""
+    recomputes each Swin-V2 block in the backward pass; the ViT/BEiT and
+    hybrid trunks take none, as in the JAX package. ``input_size`` sizes
+    BEiT's relative-position tables; the hybrid, like ViT, resizes its
+    position embedding to any input."""
     if name in SWIN2_NAMES:
         from .swin2 import make_swin2_backbone
 
@@ -33,15 +36,19 @@ def make_backbone(
         from .vit import make_vit_backbone
 
         return make_vit_backbone(name, hooks=hooks, input_size=input_size)
+    if name in HYBRID_NAMES:
+        from .vit_hybrid import make_vit_hybrid_backbone
+
+        return make_vit_hybrid_backbone(name, hooks=hooks)
     raise NotImplementedError(
         f"backbone {name!r} is not ported to soccdpt_torch yet (see ROADMAP.md)"
     )
 
 
 def dpt_extras(name: str) -> dict:
-    """Backbone-specific DPT wiring; the Swin-V2 and ViT/BEiT families
-    need none."""
-    if name in SWIN2_NAMES or name in VIT_NAMES:
+    """Backbone-specific DPT wiring; the Swin-V2, ViT/BEiT and hybrid
+    families need none."""
+    if name in SWIN2_NAMES or name in VIT_NAMES or name in HYBRID_NAMES:
         return {}
     raise NotImplementedError(
         f"backbone {name!r} is not ported to soccdpt_torch yet (see ROADMAP.md)"

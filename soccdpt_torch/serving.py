@@ -20,6 +20,7 @@ frames, pinned copies on a side stream, and ``depth`` requests in flight.
 from __future__ import annotations
 
 import collections
+import contextlib
 import operator
 import time
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple, Union
@@ -36,12 +37,32 @@ from .models.bias_cache import build_inference_cache
 from .models.soccdpt import compute_dtype
 
 
+@contextlib.contextmanager
+def eval_mode(model: nn.Module):
+    """Every module of ``model`` in eval mode inside the block, and the
+    ones that were in training mode put back in it afterwards: a request
+    is served deterministically (BatchNorm on its running statistics,
+    which it leaves as they are; no dropout or stochastic depth), as the
+    JAX package serves with ``deterministic=True``, whatever mode the
+    caller left the model in."""
+    training = [mod for mod in model.modules() if mod.training]
+    for mod in training:
+        mod.training = False
+    try:
+        yield
+    finally:
+        for mod in training:
+            mod.training = True
+
+
 class _Weights:
     """The modules, parameters and buffers of a model as a graph was
-    captured on them. A load (``copy_``, ``load_state_dict``, an optimizer
-    step) bumps a tensor's version counter, ``.data =`` or a move changes
-    its storage, and an assignment puts another tensor or submodule in a
-    module (``model.head = ...``): ``current()`` sees all four."""
+    captured on them, and each module's mode. A load (``copy_``,
+    ``load_state_dict``, an optimizer step) bumps a tensor's version
+    counter, ``.data =`` or a move changes its storage, an assignment puts
+    another tensor or submodule in a module (``model.head = ...``), and
+    ``train()``/``eval()`` flips a module's ``training`` flag, which a graph
+    froze at its capture: ``current()`` sees all five."""
 
     def __init__(self, model: nn.Module) -> None:
         self.model = model
@@ -50,19 +71,25 @@ class _Weights:
     def _entries(self) -> list:
         return [v for d in self._dicts for v in d.values()]
 
+    def _flags(self) -> list:
+        return [mod.training for mod in self._modules]
+
     def snapshot(self) -> None:
-        self._dicts = [d for mod in self.model.modules()
+        self._modules = list(self.model.modules())
+        self._dicts = [d for mod in self._modules
                        for d in (mod._modules, mod._parameters, mod._buffers)]
         self._held = self._entries()
         self._tensors = [v for v in self._held if isinstance(v, torch.Tensor)]
         self._ptrs = [t.data_ptr() for t in self._tensors]
         self._versions = [t._version for t in self._tensors]
+        self._modes = self._flags()
 
     def current(self) -> bool:
         now = self._entries()
         return (len(now) == len(self._held) and all(map(operator.is_, now, self._held))
                 and [t._version for t in self._tensors] == self._versions
-                and [t.data_ptr() for t in self._tensors] == self._ptrs)
+                and [t.data_ptr() for t in self._tensors] == self._ptrs
+                and self._flags() == self._modes)
 
 
 class _Capture:
@@ -108,17 +135,19 @@ class _Capture:
 
 class GraphedFunction:
     """``fn(x) -> tuple of tensors (or None)`` through one CUDA graph per
-    input shape, on the card.
+    input shape, on the card, with ``model`` in eval mode (``eval_mode``):
+    a call in training mode is served as one in eval mode, from the same
+    graphs.
 
     The graph of a shape is captured at its first call. Before each call
     every submodule, parameter and buffer of ``model`` is compared with the
     one the graphs were captured on (the same module or tensor, a tensor's
-    storage and its version counter): on a change, ``refresh`` runs (serving re-folds the
-    attention biases) and every graph is captured again, since a graph
-    reads the tensors it was captured on, and a changed storage would
-    leave it reading freed memory. Outputs are
-    copies the caller owns: no later call overwrites them. Graphs of
-    different shapes keep their own memory pools.
+    storage and its version counter, the module's mode): on a change,
+    ``refresh`` runs (serving re-folds the attention biases) and every
+    graph is captured again, since a graph reads the tensors it was
+    captured on, and a changed storage would leave it reading freed
+    memory. Outputs are copies the caller owns: no later call overwrites
+    them. Graphs of different shapes keep their own memory pools.
 
     ``graphs`` maps input shapes to their captures (``graph``, ``replays``,
     ``warmup_seconds``, ``capture_seconds``); ``recaptures`` counts the
@@ -135,17 +164,26 @@ class GraphedFunction:
         self.refresh = refresh
         self.graphs: Dict[Tuple, _Capture] = {}
         self.recaptures = 0
-        self.weights = _Weights(model)
+        with eval_mode(model):
+            self.weights = _Weights(model)
 
     def __call__(self, x: Union[np.ndarray, torch.Tensor]):
         x = torch.as_tensor(x)
-        if not self.weights.current():
-            self.graphs.clear()
-            if self.refresh is not None:
-                with torch.inference_mode(False):  # tensors that keep a version counter
-                    self.refresh()
-            self.weights.snapshot()
-            self.recaptures += 1
+        # the graphs were captured with every module in eval mode, so a
+        # current model is one left in eval mode: no walk to set modes
+        if self.weights.current():
+            return self._replay(x)
+        with eval_mode(self.model):
+            if not self.weights.current():
+                self.graphs.clear()
+                if self.refresh is not None:
+                    with torch.inference_mode(False):  # tensors that keep a version counter
+                        self.refresh()
+                self.weights.snapshot()
+                self.recaptures += 1
+            return self._replay(x)
+
+    def _replay(self, x: torch.Tensor):
         with torch.inference_mode():
             shape = (tuple(x.shape), x.dtype)
             cap = self.graphs.get(shape)
@@ -166,10 +204,13 @@ def make_serving_fn(
     """Build ``serve(frames_u8) -> (inv_depth, seg, points, occ|None)``.
 
     ``frames_u8``: (B, H, W, 3) uint8 RGB, a numpy array or a tensor on
-    any device. ``model`` moves to ``device`` (the card unless ``device``
-    says otherwise) and its attention biases are folded from its current
-    weights; a later weight load is detected and never served stale
-    (``models/bias_cache.py``, and ``GraphedFunction`` for graphs).
+    any device. ``model`` is put in eval mode at bind, and every request
+    runs it in eval mode whatever mode a caller put it in since, leaving
+    its modes as it found them (``eval_mode``). ``model`` moves to ``device``
+    (the card unless ``device`` says otherwise) and its attention biases
+    are folded from its current weights; a later weight load is detected
+    and never served stale (``models/bias_cache.py``, and
+    ``GraphedFunction`` for graphs).
     ``bias_cache_dtype=torch.bfloat16`` stores the folded biases in bf16,
     which halves what BEiT's attention reads; the default keeps them f32.
 
@@ -203,7 +244,7 @@ def make_serving_fn(
     def serve(frames_u8):
         if isinstance(frames_u8, np.ndarray):
             frames_u8 = torch.from_numpy(frames_u8)
-        with torch.inference_mode():
+        with torch.inference_mode(), eval_mode(model):
             return request(frames_u8.to(dev))
 
     serve.device = dev

@@ -228,6 +228,9 @@ class Trainer:
         """
         if self.model is None:
             raise RuntimeError("call init_state() before train_step()")
+        # the JAX step is deterministic=False whatever ran before it (an
+        # eval round leaves the model in eval mode)
+        self.model.train()
         device_batch = self.to_device_batch(batch)
         metrics: Dict[str, torch.Tensor] = {}
         if not (self.tcfg.patchwise_mode == "snapshot" and len(self.masks) > 1):

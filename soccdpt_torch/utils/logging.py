@@ -1,7 +1,8 @@
 """Metric logging: console and JSONL.
 
 The port of ``soccdpt_tpu/utils/logging.py``'s ``MetricWriter``, without
-its wandb, image and point-cloud sinks, which no ported caller uses.
+its wandb, image and point-cloud sinks, which no ported caller uses, and
+of its ``param_histograms``.
 """
 from __future__ import annotations
 
@@ -9,6 +10,9 @@ import json
 import os
 import time
 from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
 
 
 class MetricWriter:
@@ -41,3 +45,26 @@ class MetricWriter:
     def close(self) -> None:
         if self._jsonl:
             self._jsonl.close()
+
+
+def param_histograms(model: torch.nn.Module, grads: bool = False) -> Dict[str, float]:
+    """Weight (and, with ``grads``, gradient) summary stats per leaf: the
+    std and the largest magnitude (the reference logs full wandb
+    histograms, utils/__init__.py:618-626). Leaves and names are the JAX
+    tree's (``weights.named_flax_params``; ``Weights/['depth_net']...``),
+    so both packages log the same keys; a leaf with no gradient counts as
+    zeros, as in the JAX package's gradient tree."""
+    from ..weights import named_flax_params
+
+    named = named_flax_params(model)
+    leaves = [("Weights/", path, p) for path, p in named]
+    if grads:
+        leaves += [("Gradients/", path, p.grad if p.grad is not None else torch.zeros_like(p))
+                   for path, p in named]
+    out: Dict[str, float] = {}
+    for prefix, path, t in leaves:
+        name = prefix + "".join(f"[{part!r}]" for part in path.split("."))
+        a = t.detach().float().cpu().numpy()
+        out[name + ".std"] = float(a.std())
+        out[name + ".absmax"] = float(np.abs(a).max())
+    return out

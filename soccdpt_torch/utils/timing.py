@@ -7,7 +7,8 @@ around N back-to-back calls after a warm-up: for a CUDA-graph call (one
 launch from the host, ``serving.GraphedFunction``) that is the card's
 time, for an eager call the card also waits on the host's launches, and
 both are what a caller issuing calls back to back gets. On the CPU the
-host clock times the same loop.
+host clock times the same loop. ``StepTimer`` is the train loop's rolling
+step time, on the host clock.
 """
 from __future__ import annotations
 
@@ -55,3 +56,27 @@ def measure_forward_hz(
     best = max(best, 1e-12)
     return batch / best, best
 
+
+
+class StepTimer:
+    """Rolling step-time tracker for the train loop."""
+
+    def __init__(self, window: int = 50):
+        self.window = window
+        self.times = []
+        self._last = None
+
+    def tick(self) -> float:
+        now = time.perf_counter()
+        dt = 0.0
+        if self._last is not None:
+            dt = now - self._last
+            self.times.append(dt)
+            if len(self.times) > self.window:
+                self.times.pop(0)
+        self._last = now
+        return dt
+
+    @property
+    def mean(self) -> float:
+        return sum(self.times) / len(self.times) if self.times else 0.0

@@ -13,7 +13,7 @@ state by name, with these layout changes:
   ``ConvTranspose2d`` the gradient of a convolution, which is its mirror
   image;
 * dense ``kernel`` (in, out) -> ``weight`` (out, in);
-* LayerNorm / BatchNorm ``scale`` -> ``weight``;
+* LayerNorm / GroupNorm / BatchNorm ``scale`` -> ``weight``;
 * BatchNorm ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` /
   ``running_var``;
 * plain parameters (``q_bias``, ``v_bias``, ``logit_scale``, ``cls_token``,
@@ -60,7 +60,7 @@ def _targets(model: nn.Module):
                 yield t, "params", pre + "kernel", "conv"
             elif isinstance(mod, nn.Conv3d) and pname == "weight":
                 yield t, "params", pre + "kernel", "conv3d"
-            elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)) and pname == "weight":
+            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)) and pname == "weight":
                 yield t, "params", pre + "scale", None
             else:
                 yield t, "params", pre + pname, None

@@ -98,3 +98,32 @@ def test_serving_bf16_runs_close_to_f32(stacks):
     for g, r in zip(got[:2], ref[:2]):
         assert g.dtype == torch.float32 and torch.isfinite(g).all()
         assert float((g - r).abs().mean()) < 2e-2
+
+
+@pytest.mark.parametrize("version", [1, 3])
+def test_a_request_after_train_is_served_in_eval_mode(version):
+    """The JAX package serves with ``deterministic=True`` on every call. A
+    model put in training mode after its serving fn was bound must serve
+    bit for bit what it served before, leave its BatchNorm statistics as
+    they were (V1's seg decoder and every version's seg head hold them),
+    and be left in training mode."""
+    cfg = ModelConfig(camera=CameraConfig(**CAM), occupancy=OccupancyConfig(**OCC),
+                      **dict(TINY, version=version))
+    model = build_model(cfg, device="cpu", seed=0)
+    with torch.no_grad():
+        head = model.depth_net.head
+        head.conv3.weight.mul_(0.01)
+        head.conv3.bias.fill_(0.3)
+    serve = make_serving_fn(cfg, model, compute_occ=True, device="cpu")
+    frames = np.random.default_rng(1).integers(0, 256, (2, 48, 64, 3), dtype=np.uint8)
+    before = serve(frames)
+    stats = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
+    assert len(stats) >= (8 if version == 1 else 2)
+    model.train()
+    after = serve(frames)
+    for g, w, name in zip(after, before, ("inv_depth", "seg", "points", "grid")):
+        assert torch.equal(g, w), name
+    for n, b in model.named_buffers():
+        if n in stats:
+            assert torch.equal(b, stats[n]), n
+    assert all(m.training for m in model.modules())
