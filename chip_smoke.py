@@ -33,14 +33,19 @@ Phases, each of which fails the run on any error:
    from a profile (K5 in bf16 at most three); K5's gradient; times beside the plain version, the
    served modules' own cuDNN chain and the bound; K3's launch plan against
    its neighbouring plans at both decoders' map sizes;
-4. five served configurations at full width and depth, weights from a
+4. eight served configurations at full width and depth, weights from a
    numpy seed, 1080x1920 uint8 requests at batch 1 and 2, with and
    without the occupancy grid, through ``make_serving_fn``'s CUDA graphs
    (one a batch size): SOccDPT V3 on the flagship ``dpt_swin2_tiny_256``
    (K1, K2), on ``dpt_beit_large_512`` (K6, K2) and on the ViT-hybrid
-   ``dpt_hybrid_384`` (K6 12 times a request, K2), and SOccDPT V1 (two
+   ``dpt_hybrid_384`` (K6 12 times a request, K2), SOccDPT V1 (two
    trunks, K1 24 times a request) and V2 (one trunk, two heads) on the
-   flagship. For each, the launch counts are set to 0 just before its
+   flagship, and V3 on the last three backbone families, whose attention
+   is plain PyTorch as in the JAX package, so K2 is their kernel:
+   ``dpt_swin_large_384`` (Swin-V1 large, padded windows of 12),
+   ``dpt_levit_224`` (LeViT-384 and its stem transpose) and
+   ``dpt_next_vit_large_384`` (its BatchNorm statistics first set from two
+   frames, ``calibrate_batchnorm``). For each, the launch counts are set to 0 just before its
    requests and read just after; the graphs' kernel nodes, read through
    libcuda's graph API, times their replays prove the path ran through its
    kernels; the graphs' outputs are held to the eager path's on the same
@@ -62,13 +67,18 @@ Phases, each of which fails the run on any error:
 5. training, through ``soccdpt_torch.train.trainer.Trainer`` on a fixed
    synthetic batch with GT at 1080x1920: ``dpt_beit_large_512`` at full
    width and depth, batch 2 (K6 forward and K7 backward, 24 launches each
-   per step), and the flagship at batch 3 as V3 (K1 twelve times forward
-   per step), V1 (24 times; its seg decoder has BatchNorm) and V2. For
+   per step), the flagship at batch 3 as V3 (K1 twelve times forward
+   per step), V1 (24 times; its seg decoder has BatchNorm) and V2, and V3
+   on the last three families at batch 2 (no kernel of the table). For
    each: one f32 loss and its gradients on the card against the CPU's
-   through the plain versions; five bf16 steps whose loss must stay
-   finite and fall, with the launch counts read around every step; the
-   median step time, the step's peak memory above what is allocated when
-   the peak is reset, and a device-time profile of one step;
+   through the plain versions, and every BatchNorm's statistics after its
+   forward (LeViT's and Next-ViT's trunks: each bound widened by the CPU's
+   own spread under one rounding of the image); five bf16 steps whose loss
+   must stay finite and fall, with the launch counts read around every
+   step; the median step time, the step's peak memory above what is
+   allocated when the peak is reset, and a device-time profile of one
+   step; then ViT3D, the standalone volumetric refiner, on a full
+   256x256x32x3 grid: card against CPU in f32, and its time;
 6. occupancy training, through the data layer and
    ``soccdpt_torch.cli.train_occupancy``: a BDD fixture tree of 2 x 4
    frames at 1920x1080 written from seed 0; the host library (built with
@@ -85,7 +95,7 @@ Phases, each of which fails the run on any error:
    occupied, the step time and a profile of one step;
 7. the timing CLIs: ``python -m soccdpt_torch.cli.bench`` (through its
    ``main``), ``eval_timing --contract full`` and ``--contract occ`` for the
-   five served configurations, ``eval_patchwise`` on the flagship at batch
+   eight served configurations, ``eval_patchwise`` on the flagship at batch
    1, 2 and 4 and patch-wise 1.0, 0.5 and 0.25 (any error row fails);
 8. the training and eval CLIs on a BDD fixture tree of 2 x 10 frames at
    1920x1080: ``soccdpt_torch.cli.train`` on the flagship (its published
@@ -1444,6 +1454,20 @@ SERVED = {
     "hybrid": {"model_type": "dpt_hybrid_384", "version": 3, "parity_batch": 2,
                "latency_reps": 10,
                "per_request": {"window_attention": 0, "global_attention": 12}},
+    # the last three families run no attention kernel (their attention is
+    # plain PyTorch, as it is plain einsum and softmax in the JAX package):
+    # Swin-V1 large at 256 px (padded windows of 12), LeViT-384 at 224 px
+    # (BatchNorm trunk, stem transpose before the heads), Next-ViT large at
+    # 384 px (40 conv and attention blocks)
+    "swin1": {"model_type": "dpt_swin_large_384", "version": 3, "parity_batch": 1,
+              "latency_reps": 10,
+              "per_request": {"window_attention": 0, "global_attention": 0}},
+    "levit": {"model_type": "dpt_levit_224", "version": 3, "parity_batch": 2,
+              "latency_reps": 10,
+              "per_request": {"window_attention": 0, "global_attention": 0}},
+    "next_vit": {"model_type": "dpt_next_vit_large_384", "version": 3, "parity_batch": 1,
+                 "latency_reps": 10, "calibrate_batchnorm": True,
+                 "per_request": {"window_attention": 0, "global_attention": 0}},
 }
 PARITY_ATOL = {"inv_depth": 1e-4, "seg": 1e-4, "points": 5e-3}
 GRID_MISMATCH_LIMIT = 0.01
@@ -1451,6 +1475,28 @@ GRID_MISMATCH_LIMIT = 0.01
 # input, so the probabilities are held on average and cell by cell
 HEAD_MEAN_ABS_LIMIT, HEAD_CELL_ATOL, HEAD_CELL_SHARE_LIMIT = 1e-3, 1e-2, 0.01
 BF16_CACHE_MEAN_ABS_LIMIT = 1e-2
+
+
+def calibrate_batchnorm(torch, model, cfg, frames):
+    """Set every BatchNorm's running statistics to the ones ``frames`` give
+    it (a training-mode forward at momentum 1, no gradients), as a trained
+    model's would be: a BatchNorm trunk drawn from a seed keeps running
+    variances near 1 whatever its activations are, and Next-ViT's 40
+    blocks then grow them out of range in eval mode. LeViT's seeded trunk
+    serves in range as drawn; calibrated, it would feed its stem transpose,
+    whose statistics never train (as in the JAX package), maps that its
+    drawn ones do not fit, so it is left as drawn."""
+    from soccdpt_torch.data.transforms import device_preprocess
+
+    norms = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    for m in norms:
+        m.momentum = 1.0
+    model.train()
+    with torch.no_grad():
+        model(device_preprocess(frames, cfg.net_size), return_raw=True)
+    for m in norms:
+        m.momentum = 0.1
+    model.eval()
 
 
 def frames_u8(torch, B, seed):
@@ -1641,6 +1687,8 @@ def phase_serving(torch, card, label):
     cfg = ModelConfig(model_type=spec["model_type"], version=spec["version"])
     t0 = time.perf_counter()
     base = build_model(cfg, device="cuda", seed=0)
+    if spec.get("calibrate_batchnorm"):
+        calibrate_batchnorm(torch, base, cfg, frames_u8(torch, 2, 99))
     with torch.no_grad():
         # keep inv_depth in a band where depth = 1/inv stays well conditioned
         head = base.depth_net.head if cfg.version != 2 else base.depth_head
@@ -2090,7 +2138,8 @@ def phase_stream(torch, card):
 
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "batch", "hz_std", "ms_per_forward",
               "ms_std", "raw_net_hz", "raw_net_ms", "device")
-TIMED_SERVED = ((["dpt_swin2_tiny_256", "dpt_beit_large_512", "dpt_hybrid_384"], 3),
+TIMED_SERVED = ((["dpt_swin2_tiny_256", "dpt_beit_large_512", "dpt_hybrid_384",
+                  "dpt_swin_large_384", "dpt_levit_224", "dpt_next_vit_large_384"], 3),
                 (["dpt_swin2_tiny_256"], 1), (["dpt_swin2_tiny_256"], 2))
 PATCHWISE_ARGS = ["-t", "dpt_swin2_tiny_256", "-v", "3", "--batch_sizes", "1", "2", "4",
                   "--patchwise", "1.0", "0.5", "0.25", "--encoder_pct", "0.5"]
@@ -2109,7 +2158,7 @@ def json_lines(fn, *args):
 
 def phase_clis(torch, card):
     """``python -m soccdpt_torch.cli.bench`` (through its ``main``),
-    ``eval_timing --contract full`` and ``--contract occ`` for the four
+    ``eval_timing --contract full`` and ``--contract occ`` for the eight
     served configurations, and ``eval_patchwise`` on the flagship."""
     from soccdpt_torch.cli import bench, eval_patchwise, eval_timing
 
@@ -2150,6 +2199,54 @@ def phase_clis(torch, card):
 
 
 # ---------------------------------------------------------------------------
+# ViT3D, the standalone volumetric refiner
+# ---------------------------------------------------------------------------
+
+VIT3D_ATOL = 2e-5  # refined probabilities, card against CPU, f32, TF32 off
+
+
+def phase_vit3d(torch, card):
+    """ViT3D on a full 256 x 256 x 32 grid of 3 classes ((16, 16, 8)
+    patches: 1,024 tokens and a class token, width 256, four blocks),
+    weights from a numpy seed: one ``refine`` forward in f32 on the card
+    against the CPU's, TF32 off; then its time in f32 and bf16 by graph
+    replay. No model calls it, as in the JAX package."""
+    from soccdpt_torch.models.backbones import make_backbone
+    from soccdpt_torch.weights import init_random_
+
+    record = RECORD.setdefault("vit3d", {})
+    factory, _ = make_backbone("vit_3d")
+    model = init_random_(factory(), seed=0).eval()
+    grid = torch.rand((1, 256, 256, 32, 3), generator=torch.Generator().manual_seed(0))
+    set_tf32(torch, False)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = model(grid)
+        cpu_s = time.perf_counter() - t0
+        model = model.cuda()
+        grid_card = grid.cuda()
+        got = model(grid_card)
+        err = float((got.cpu() - want).abs().max())
+        spread = float(want.max() - want.min())
+        record.update({"grid": list(grid.shape), "max_abs_err": err, "atol": VIT3D_ATOL,
+                       "spread": spread, "cpu_seconds": cpu_s,
+                       "weights": sum(p.numel() for p in model.parameters())})
+        log(f"vit3d refine, card vs CPU (f32, TF32 off): max |err| {err:.3g} (atol "
+            f"{VIT3D_ATOL}), probabilities spread over {spread:.3f}; the CPU took "
+            f"{cpu_s:.1f} s")
+        if tuple(got.shape) != (1, 256, 256, 32, 3) or not bool(torch.isfinite(got).all()):
+            fail(f"vit3d: bad refined grid {tuple(got.shape)}")
+        if not (err <= VIT3D_ATOL and spread > 0.05):
+            fail("vit3d: the card's refined grid left the CPU's")
+        set_tf32(torch, True)
+        times = {dtype: cuda_ms(torch, lambda: model(grid_card, getattr(torch, dtype)))
+                 for dtype in ("float32", "bfloat16")}
+    record["ms"] = times
+    log(f"vit3d refine, batch 1: {times['float32']:.3f} ms in f32 (TF32 on), "
+        f"{times['bfloat16']:.3f} ms in bf16 by graph replay ({card})")
+
+
+# ---------------------------------------------------------------------------
 # the trained configurations
 # ---------------------------------------------------------------------------
 
@@ -2174,6 +2271,20 @@ TRAINED = {
                 "encoder_percentage": 0.5,
                 "per_step": {"window_attention": 12, "global_attention": 0,
                              "global_attention_backward": 0}},
+    # the last three families, V3 at batch 2; LeViT's and Next-ViT's
+    # BatchNorms train on the batch's statistics
+    "swin1": {"model_type": "dpt_swin_large_384", "version": 3, "batch": 2,
+              "encoder_percentage": 0.5,
+              "per_step": {"window_attention": 0, "global_attention": 0,
+                           "global_attention_backward": 0}},
+    "levit": {"model_type": "dpt_levit_224", "version": 3, "batch": 2,
+              "encoder_percentage": 0.5, "nudged_spread": True,
+              "per_step": {"window_attention": 0, "global_attention": 0,
+                           "global_attention_backward": 0}},
+    "next_vit": {"model_type": "dpt_next_vit_large_384", "version": 3, "batch": 2,
+                 "encoder_percentage": 0.5, "nudged_spread": True,
+                 "per_step": {"window_attention": 0, "global_attention": 0,
+                              "global_attention_backward": 0}},
 }
 TRAIN_STEPS = 5
 TRAIN_LR = 1e-4  # of the five bf16 steps; the config's default of 1e-5 moves little in five
@@ -2191,6 +2302,18 @@ TRAIN_GRAD_REL_LIMIT = 1e-2
 # has a gradient that vanishes in exact arithmetic, since the norm subtracts
 # the batch mean, so both devices give rounding noise of the other terms
 TRAIN_GRAD_ATOL_OF_MAX = 1e-6
+# every BatchNorm's running statistics after the f32 loss's forward, card
+# against CPU, each leaf's |s_card - s_cpu| / |s_cpu| (2-norms): the batch's
+# statistics through a trunk of training-mode BatchNorms (the CPU tests of
+# LeViT and Next-ViT hold them to 3e-5 against JAX at 64-128 px)
+TRAIN_STATS_REL_LIMIT = 1e-3
+# A trunk of training-mode BatchNorms (LeViT, Next-ViT) is ill-conditioned
+# at batch 2: a relative nudge of 1e-7 of the image (one f32 rounding) moves
+# the CPU's own f32 gradients by about as much as the card's differ from
+# them (PERF.md), and a float64 CPU run lies as far from the card's f32
+# gradients as from the CPU's. There each leaf's bound adds this many times
+# the CPU's own spread under that nudge, for gradients and statistics alike.
+TRAIN_SPREAD_FACTOR = 4.0
 
 
 def loss_and_grads(trainer, batch):
@@ -2212,11 +2335,14 @@ def loss_and_grads(trainer, batch):
     return float(loss.detach())
 
 
-def f32_parity(torch, label, mcfg, base, batch, record):
+def f32_parity(torch, label, mcfg, base, batch, record, nudged_spread=False):
     """One f32 loss of ``batch`` and its gradients on the card against the
     CPU's through the plain versions, TF32 off (the trainer's first patch
     mask trainable): the loss to ``TRAIN_LOSS_RTOL``, every leaf's gradient
-    to ``TRAIN_GRAD_REL_LIMIT`` of its norm."""
+    to ``TRAIN_GRAD_REL_LIMIT`` of its norm, every BatchNorm statistic after
+    the forward to ``TRAIN_STATS_REL_LIMIT``; with ``nudged_spread`` each
+    bound adds ``TRAIN_SPREAD_FACTOR`` times the CPU's own spread under one
+    rounding of the image."""
     from soccdpt_torch.core.config import TrainConfig
     from soccdpt_torch.train.trainer import Trainer
     from soccdpt_torch.weights import named_flax_params
@@ -2229,20 +2355,31 @@ def f32_parity(torch, label, mcfg, base, batch, record):
         f"{time.perf_counter() - t0:.1f} s, "
         f"{sum(p.numel() for p in trainer.model.parameters()) / 1e6:.1f} M weights, "
         f"{sum(trainer.masks[0].values())} of {len(trainer.masks[0])} leaves trainable")
+    cpu = Trainer(mcfg, TrainConfig(**base), device="cpu")
+    # copied before the card's forward moves the running statistics
+    cpu.masks, cpu.model = trainer.masks, copy.deepcopy(trainer.model).cpu()
+    nudged = None
+    if nudged_spread:
+        nudged = Trainer(mcfg, TrainConfig(**base), device="cpu")
+        nudged.masks, nudged.model = trainer.masks, copy.deepcopy(cpu.model)
     loss_card = loss_and_grads(trainer, batch)
     torch.cuda.synchronize()
-    cpu = Trainer(mcfg, TrainConfig(**base), device="cpu")
-    cpu.masks, cpu.model = trainer.masks, copy.deepcopy(trainer.model).cpu()
     t0 = time.perf_counter()
     loss_cpu = loss_and_grads(cpu, batch)
     cpu_seconds = time.perf_counter() - t0
+    if nudged is not None:
+        # the CPU again, on the image times 1 + 1e-7 N(0, 1): one f32 rounding
+        rng = np.random.default_rng(1)
+        image = batch["image"] * (1 + 1e-7 * rng.standard_normal(batch["image"].shape))
+        loss_and_grads(nudged, dict(batch, image=image.astype(np.float32)))
     backbone = next(m for n, m in trainer.model.named_modules() if n.endswith("backbone"))
     depth = getattr(backbone.cfg, "depth", None)
     log(f"train {label}: CPU loss and gradients in {cpu_seconds:.1f} s at full width and "
         f"depth{f' ({depth} blocks)' if depth else ''}")
     loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    leaves = []  # (path, |g_card - g_cpu|, |g_cpu|)
-    for (path, p), (_, pc) in zip(named_flax_params(trainer.model), named_flax_params(cpu.model)):
+    models = [trainer.model, cpu.model] + ([nudged.model] if nudged else [])
+    leaves = []  # (path, |g_card - g_cpu|, |g_cpu|, |g_nudged - g_cpu|)
+    for (path, p), (_, pc), *pn in zip(*(named_flax_params(m) for m in models)):
         if (p.grad is None) != (pc.grad is None):
             fail(f"train {label}: {path} has a gradient on one device only")
         if p.grad is None:
@@ -2250,28 +2387,59 @@ def f32_parity(torch, label, mcfg, base, batch, record):
         ref = float(pc.grad.norm())
         if not ref > 0:
             fail(f"train {label}: the CPU gradient of {path} is zero")
-        leaves.append((path, float((p.grad.cpu() - pc.grad).norm()), ref))
-    floor = TRAIN_GRAD_ATOL_OF_MAX * max(ref for _, _, ref in leaves)
+        spread = float((pn[0][1].grad - pc.grad).norm()) if pn else 0.0
+        leaves.append((path, float((p.grad.cpu() - pc.grad).norm()), ref, spread))
+    floor = TRAIN_GRAD_ATOL_OF_MAX * max(ref for _, _, ref, _ in leaves)
     # each leaf's error as a share of its bound; a NaN takes the lead and fails below
     worst = ("", 0.0, 0.0)
-    for path, err, ref in leaves:
-        share = err / (TRAIN_GRAD_REL_LIMIT * ref + floor)
+    for path, err, ref, spread in leaves:
+        share = err / (TRAIN_GRAD_REL_LIMIT * ref + floor + TRAIN_SPREAD_FACTOR * spread)
         if not share <= worst[1]:
             worst = (path, share, err / ref)
-    compared, median_rel = len(leaves), float(np.median([e / r for _, e, r in leaves]))
+    compared, median_rel = len(leaves), float(np.median([e / r for _, e, r, _ in leaves]))
+    median_spread = float(np.median([s_ / r for _, _, r, s_ in leaves]))
     record["parity_f32"] = {"loss_card": loss_card, "loss_cpu": loss_cpu, "loss_rel_err": loss_rel,
                             "loss_rtol": TRAIN_LOSS_RTOL, "leaves_compared": compared,
                             "worst_leaf": worst[0], "worst_leaf_share_of_bound": worst[1],
                             "worst_leaf_rel_err": worst[2], "median_leaf_rel_err": median_rel,
+                            "median_leaf_nudged_spread": median_spread if nudged else None,
                             "grad_rel_limit": TRAIN_GRAD_REL_LIMIT, "grad_floor": floor,
                             "cpu_seconds": cpu_seconds}
     log(f"train {label} f32, card vs CPU: loss {loss_card:.6f} vs {loss_cpu:.6f} (rel "
         f"{loss_rel:.3g}, limit {TRAIN_LOSS_RTOL}); {compared} leaves' gradients, worst "
         f"{worst[0]} at {worst[1]:.3g} of its bound ({worst[2]:.3g} of its norm; bound "
-        f"{TRAIN_GRAD_REL_LIMIT} of the norm + {floor:.3g}), median {median_rel:.3g} of the norm")
+        f"{TRAIN_GRAD_REL_LIMIT} of the norm + {floor:.3g}"
+        + (f" + {TRAIN_SPREAD_FACTOR} x the CPU's own spread" if nudged else "")
+        + f"), median {median_rel:.3g} of the norm"
+        + (f"; the CPU's spread under one rounding of the image, median {median_spread:.3g} "
+           "of the norm" if nudged else ""))
     if not (loss_rel <= TRAIN_LOSS_RTOL and worst[1] <= 1.0 and compared > 0):
         fail(f"train {label}: the card's f32 loss or gradients left the CPU's")
-    del trainer, cpu
+    stats = [(f"{name}.{stat}", *(getattr(m, stat) for _, m in entries))
+             for entries in zip(*(m.named_modules() for m in models))
+             for name, mod in entries[:1]
+             if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm)
+             for stat in ("running_mean", "running_var")]
+    if stats:
+        shares = []  # (path, share of the bound, relative error)
+        for path, st, sc, *sn in stats:
+            err, ref = float((st.cpu() - sc).norm()), float(sc.norm())
+            spread = float((sn[0] - sc).norm()) if sn else 0.0
+            shares.append((path, err / (TRAIN_STATS_REL_LIMIT * ref + TRAIN_SPREAD_FACTOR * spread),
+                           err / ref))
+        # a NaN takes the lead and fails below
+        worst_s = max(shares, key=lambda r: r[1] if r[1] == r[1] else float("inf"))
+        record["parity_f32"].update({"stat_leaves": len(shares), "worst_stat": worst_s[0],
+                                     "worst_stat_share_of_bound": worst_s[1],
+                                     "worst_stat_rel_err": worst_s[2],
+                                     "stat_rel_limit": TRAIN_STATS_REL_LIMIT})
+        log(f"train {label} f32, BatchNorm statistics after the forward, card vs CPU: "
+            f"{len(shares)} leaves, worst {worst_s[0]} at {worst_s[1]:.3g} of its bound "
+            f"({worst_s[2]:.3g} of its norm; limit {TRAIN_STATS_REL_LIMIT}"
+            + (f" + {TRAIN_SPREAD_FACTOR} x the CPU's spread" if nudged else "") + ")")
+        if not worst_s[1] <= 1.0:
+            fail(f"train {label}: the card's BatchNorm statistics left the CPU's")
+    del trainer, cpu, nudged, models
     torch.cuda.empty_cache()
     set_tf32(torch, True)
 
@@ -2296,7 +2464,7 @@ def phase_training(torch, card, label):
                 patchwise_percentage=1.0, learning_rate=TRAIN_LR)
 
     # --- (a) f32: one loss and its gradients, card against CPU, TF32 off ------
-    f32_parity(torch, label, mcfg, base, batch, record)
+    f32_parity(torch, label, mcfg, base, batch, record, spec.get("nudged_spread", False))
 
     # --- (b) the main path: five bf16 steps on that batch, counts from 0 ------
     torch.cuda.synchronize()
@@ -3221,6 +3389,8 @@ _SEG_HEAD_MODS = {"conv1": 0, "bn": 1, "conv2": 4}  # seg head: conv3x3, BN, con
 
 def _torch_layout(arr, layout):
     """A flax leaf in torch's layout (the inverse of torch_import's)."""
+    if layout == "by_rank":  # Next-ViT's kernels: 4-D conv, 2-D dense
+        layout = "conv" if arr.ndim == 4 else "dense"
     if layout == "dense":
         return arr.T
     if layout == "conv":
@@ -3239,11 +3409,52 @@ def _norm_or_mlp(rest):
     return None
 
 
+# LeViT: flax module -> timm's flat ``blocks`` index, as the reader numbers
+# them (its default stage depths (4, 4, 4); a shallower model's names are a
+# subset)
+_LEVIT_BLOCKS = {}
+for _s in range(3):
+    for _d in range(4):
+        _LEVIT_BLOCKS[f"s{_s}_attn{_d}"] = ("attn", 10 * _s + 2 * _d)
+        _LEVIT_BLOCKS[f"s{_s}_mlp{_d}"] = ("mlp", 10 * _s + 2 * _d + 1)
+    if _s < 2:
+        _LEVIT_BLOCKS[f"downsample{_s}_attn"] = ("sub", 10 * _s + 8)
+        _LEVIT_BLOCKS[f"downsample{_s}_mlp"] = ("mlp", 10 * _s + 9)
+_LEVIT_ATTN_MODS = {"qkv": "qkv", "kv": "kv", "q": "q.1", "proj": "proj.1"}
+
+
+def _levit_key(name, rest, leaf):
+    if name.startswith("stem"):
+        mod = "c" if rest[0] == "conv" else "bn"
+        return f"patch_embed.{2 * int(name[4:])}.{mod}.{leaf}", "conv" if mod == "c" else None
+    kind, n = _LEVIT_BLOCKS[name]
+    pre = f"blocks.{n}." + ("m." if kind == "attn" else "")
+    if rest == ("attn_bias",):
+        return pre + "attention_biases", None
+    if kind == "mlp":
+        pre += "m.0." if rest[0] == "fc1" else "m.2."
+    else:
+        pre += _LEVIT_ATTN_MODS[rest[0]] + "."
+    if rest[1] == "linear":
+        return pre + "c.weight", "dense"
+    return pre + f"bn.{leaf}", None
+
+
 def _backbone_key(path, family):
     """(torch key under ``pretrained.``, layout) of a backbone leaf."""
     m = "model."
     name, rest = path[0], path[1:]
     leaf = _LEAF.get(path[-1], path[-1])
+    if family == "levit":
+        key, layout = _levit_key(name, rest, leaf)
+        return m + key, layout
+    if family == "next_vit":
+        # the official module names, verbatim; the reader tells a conv from
+        # a linear by rank
+        root = "stem" if name.startswith("stem") else "features"
+        mods = ".".join(rest[:-1])
+        return f"{m}{root}.{name[len(root):]}.{mods}.{leaf}", (
+            "by_rank" if path[-1] == "kernel" else None)
     if family == "swin":
         if name == "patch_embed":
             return f"{m}patch_embed.proj.{leaf}", "conv" if leaf == "weight" else None
@@ -3307,6 +3518,11 @@ def _dpt_key(path, family, seg_head=False):
     if name == "head":
         idx = (_SEG_HEAD_MODS if seg_head else _HEAD_CONVS)[path[1]]
         return f"scratch.output_conv.{idx}.{leaf}", conv
+    if name == "stem_transpose":  # LeViT's: up1, bn1 at .0; up2, bn2 at .2
+        idx = 2 * (int(path[1][-1]) - 1)
+        if path[1].startswith("up"):
+            return f"scratch.stem_transpose.{idx}.c.weight", "conv_t"
+        return f"scratch.stem_transpose.{idx}.bn.{leaf}", None
     raise KeyError(f"no reference key for DPT leaf {'/'.join(path)}")
 
 
@@ -3389,7 +3605,10 @@ def main():
                         ("beit", "serving dpt_beit_large_512"),
                         ("swin_v1", "serving V1 dpt_swin2_tiny_256"),
                         ("swin_v2", "serving V2 dpt_swin2_tiny_256"),
-                        ("hybrid", "serving dpt_hybrid_384")):
+                        ("hybrid", "serving dpt_hybrid_384"),
+                        ("swin1", "serving dpt_swin_large_384"),
+                        ("levit", "serving dpt_levit_224"),
+                        ("next_vit", "serving dpt_next_vit_large_384")):
         set_tf32(torch, False)
         with phase(name):
             path_launches[f"serve_{label}"], served_problem = phase_serving(torch, card, label)
@@ -3407,10 +3626,16 @@ def main():
     for label, name in (("beit", "training dpt_beit_large_512"),
                         ("swin", "training dpt_swin2_tiny_256"),
                         ("swin_v1", "training V1 dpt_swin2_tiny_256"),
-                        ("swin_v2", "training V2 dpt_swin2_tiny_256")):
+                        ("swin_v2", "training V2 dpt_swin2_tiny_256"),
+                        ("swin1", "training dpt_swin_large_384"),
+                        ("levit", "training dpt_levit_224"),
+                        ("next_vit", "training dpt_next_vit_large_384")):
         with phase(name):
             path_launches[f"train_{label}"] = phase_training(torch, card, label)
         torch.cuda.empty_cache()
+    with phase("vit3d refine on the full grid"):
+        phase_vit3d(torch, card)
+    torch.cuda.empty_cache()
     with phase("occupancy training dpt_swin2_tiny_256"):
         path_launches["train_occ_swin"] = phase_occupancy(torch, card)
     torch.cuda.empty_cache()

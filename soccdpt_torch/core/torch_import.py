@@ -5,9 +5,9 @@ The reference saves raw ``state_dict`` files (train_SOccDPT.py:437-449)
 and loads with ``strict=False`` + optimizer-dict unwrap
 (base_model.py:5-37). The converters here map those key layouts onto the
 JAX package's flax paths and layouts, as the JAX module does, for the
-families the port has: Swin-V2 (and the Swin-V1 keys it shares), ViT/BEiT
-and the ViT-hybrid; LeViT and Next-ViT come with their backbones
-(ROADMAP.md, queue 1). ``load_imported`` then merges the result into a
+families of the JAX package: Swin-V2 (and the Swin-V1 keys it shares),
+ViT/BEiT, the ViT-hybrid, LeViT (with the DPT's ``scratch.stem_transpose``)
+and Next-ViT. ``load_imported`` then merges the result into a
 port model leniently (``merge_into``'s ``strict=False`` semantics) and
 lands it through ``weights.to_jax_variables`` and
 ``weights.load_jax_variables``, which map flax paths onto the port's
@@ -252,20 +252,21 @@ def convert_backbone_dpt_keys(
     torch_prefix: str = "",
     family: str = "swin",
     grid_hw: Tuple[int, int] = (24, 24),
+    depths: Tuple[int, ...] = (4, 4, 4),
 ) -> Tuple[Dict[Tuple[str, ...], np.ndarray], Dict[Tuple[str, ...], np.ndarray]]:
     """Family-dispatching DPT converter (reference loader.py:37-124
-    dispatches 11 model types; each family has its own timm layout)."""
+    dispatches 11 model types; each family has its own timm layout).
+    ``depths`` are LeViT's stage depths, which number its flat blocks."""
     if family == "swin":
         return convert_swin2_dpt_keys(sd, torch_prefix)
     if family == "vit":
         return convert_vit_dpt_keys(sd, torch_prefix, "vit", grid_hw)
     if family == "hybrid":
         return convert_hybrid_dpt_keys(sd, torch_prefix, grid_hw)
-    if family in ("levit", "next_vit"):
-        raise NotImplementedError(
-            f"the {family} family's torch keys are not read by soccdpt_torch yet: its "
-            "backbone and converter come with its slice (ROADMAP.md, queue 1)"
-        )
+    if family == "levit":
+        return convert_levit_dpt_keys(sd, torch_prefix, depths)
+    if family == "next_vit":
+        return convert_next_vit_dpt_keys(sd, torch_prefix)
     raise ValueError(f"unknown importer family {family!r}")
 
 
@@ -610,6 +611,172 @@ def _bn_leaf(base, leaf, val, params, stats):
         stats[base + ("mean",)] = _id(val)
     elif leaf == "running_var":
         stats[base + ("var",)] = _id(val)
+
+
+# ---------------------------------------------------------------------------
+# LeViT family (MiDaS dpt_levit_224 layout, timm 0.6.12 LeViT)
+# ---------------------------------------------------------------------------
+
+
+def _levit_block_names(depths: Tuple[int, ...] = (4, 4, 4)) -> Dict[int, Tuple[str, str]]:
+    """timm ``model.blocks`` flat index -> (flax module name, kind).
+
+    timm's block list per stage: depth x [Residual(Attention),
+    Residual(FFN)], then between stages [AttentionSubsample,
+    Residual(FFN)] (the hook indices of reference dpt.py:85 count this
+    same flat sequence)."""
+    names: Dict[int, Tuple[str, str]] = {}
+    blk = 0
+    for s, depth in enumerate(depths):
+        for d in range(depth):
+            names[blk] = (f"s{s}_attn{d}", "attn")
+            blk += 1
+            names[blk] = (f"s{s}_mlp{d}", "mlp")
+            blk += 1
+        if s < len(depths) - 1:
+            names[blk] = (f"downsample{s}_attn", "sub")
+            blk += 1
+            names[blk] = (f"downsample{s}_mlp", "mlp")
+            blk += 1
+    return names
+
+
+def convert_levit_dpt_keys(
+    sd: Dict[str, np.ndarray],
+    torch_prefix: str = "",
+    depths: Tuple[int, ...] = (4, 4, 4),
+) -> Tuple[Dict[Tuple[str, ...], np.ndarray], Dict[Tuple[str, ...], np.ndarray]]:
+    """MiDaS dpt_levit_224 layout -> flax paths.
+
+    Backbone under ``pretrained.model.*`` (timm 0.6.12 LeViT:
+    ``patch_embed.{0,2,4,6}`` ConvNorm stem, ``blocks.N`` flat sequence
+    of Linear_BN modules with ``c``/``bn`` children, per-head fused
+    ``qkv`` / subsample ``kv``+``q``, ``attention_biases`` tables whose
+    first-seen offset order equals the ``|dh|*gw+|dw|`` index); the
+    reference's ConvTranspose upsampling head under
+    ``scratch.stem_transpose`` (reference backbones/levit.py:60-132).
+    Scratch/refinenets/output head via the shared converter. The
+    transposed-conv kernels are flipped into flax's layout (``_conv_t``);
+    the port's ``StemTranspose`` pads as flax's ``"SAME"`` does, to even
+    output sizes, where the reference's torch module (padding 1) gives
+    2H - 1.
+    """
+    params, stats = convert_swin2_dpt_keys(sd, torch_prefix=torch_prefix)
+    params = {k: v for k, v in params.items() if k[0] != "backbone"}
+    names = _levit_block_names(depths)
+    bb = ("backbone",)
+    for key, val in sd.items():
+        if torch_prefix:
+            if not key.startswith(torch_prefix):
+                continue
+            key = key[len(torch_prefix):]
+
+        m = re.match(r"pretrained\.model\.(.*)$", key)
+        if m:
+            sub = m.group(1)
+            pe = re.match(r"patch_embed\.(\d)\.(c|bn)\.(.+)$", sub)
+            if pe:
+                idx, mod, leaf = int(pe.group(1)) // 2, pe.group(2), pe.group(3)
+                stem = bb + (f"stem{idx}",)
+                if mod == "c" and leaf == "weight":
+                    params[stem + ("conv", "kernel")] = _conv(val)
+                elif mod == "bn":
+                    _bn_leaf(stem + ("bn",), leaf, val, params, stats)
+                continue
+            b = re.match(r"blocks\.(\d+)\.(.*)$", sub)
+            if not b:
+                continue
+            n, rest = int(b.group(1)), b.group(2)
+            if n not in names:
+                continue
+            name, kind = names[n]
+            blk = bb + (name,)
+            if kind == "mlp":
+                mm = re.match(r"m\.(0|2)\.(c|bn)\.(.+)$", rest)
+                if mm:
+                    fc = "fc1" if mm.group(1) == "0" else "fc2"
+                    if mm.group(2) == "c" and mm.group(3) == "weight":
+                        params[blk + (fc, "linear", "kernel")] = _dense(val)
+                    elif mm.group(2) == "bn":
+                        _bn_leaf(blk + (fc, "bn"), mm.group(3), val, params, stats)
+            else:
+                # attention blocks are Residual-wrapped ("m." prefix); the
+                # AttentionSubsample between stages is not
+                if kind == "attn":
+                    if not rest.startswith("m."):
+                        continue
+                    r = rest[2:]
+                else:
+                    r = rest
+                if r == "attention_biases":
+                    params[blk + ("attn_bias",)] = _id(val)
+                    continue
+                am = re.match(r"(qkv|kv|proj\.1|q\.1)\.(c|bn)\.(.+)$", r)
+                if am:
+                    mod = {"qkv": "qkv", "kv": "kv", "proj.1": "proj", "q.1": "q"}[am.group(1)]
+                    if am.group(2) == "c" and am.group(3) == "weight":
+                        params[blk + (mod, "linear", "kernel")] = _dense(val)
+                    elif am.group(2) == "bn":
+                        _bn_leaf(blk + (mod, "bn"), am.group(3), val, params, stats)
+            continue
+
+        st = re.match(r"scratch\.stem_transpose\.(0|2)\.(c|bn)\.(.+)$", key)
+        if st:
+            idx = "1" if st.group(1) == "0" else "2"
+            base = ("stem_transpose",)
+            if st.group(2) == "c" and st.group(3) == "weight":
+                params[base + (f"up{idx}", "kernel")] = _conv_t(val)
+            elif st.group(2) == "bn":
+                _bn_leaf(base + (f"bn{idx}",), st.group(3), val, params, stats)
+    return params, stats
+
+
+# ---------------------------------------------------------------------------
+# Next-ViT family (MiDaS dpt_next_vit_large_384 layout, official bytedance
+# module names, which the backbone's scopes mirror)
+# ---------------------------------------------------------------------------
+
+
+def convert_next_vit_dpt_keys(
+    sd: Dict[str, np.ndarray], torch_prefix: str = ""
+) -> Tuple[Dict[Tuple[str, ...], np.ndarray], Dict[Tuple[str, ...], np.ndarray]]:
+    """Official Next-ViT layout under ``pretrained.model.*``
+    (``stem.{0..3}`` ConvBNReLU, ``features.{N}`` NCB/NTB blocks whose
+    child names -- patch_embed / mhca.group_conv3x3 / mhca.projection /
+    e_mhsa.{q,k,v,proj} / norm(1|2) / mlp.conv(1|2) -- the backbone
+    reuses verbatim) -> flax paths. Leaf kind is dispatched on tensor
+    rank: 4-D weight = conv, 2-D = linear, 1-D = BN scale. The final
+    classifier ``norm``/``head`` keys are ignored. Scratch/refinenets/
+    output head via the shared converter."""
+    params, stats = convert_swin2_dpt_keys(sd, torch_prefix=torch_prefix)
+    params = {k: v for k, v in params.items() if k[0] != "backbone"}
+    for key, val in sd.items():
+        if torch_prefix:
+            if not key.startswith(torch_prefix):
+                continue
+            key = key[len(torch_prefix):]
+        m = re.match(r"pretrained\.model\.(stem|features)\.(\d+)\.(.*)$", key)
+        if not m:
+            continue
+        root, n, rest = m.groups()
+        parts = rest.split(".")
+        leaf, mods = parts[-1], tuple(parts[:-1])
+        path = ("backbone", f"{root}{n}") + mods
+        val = np.asarray(val)
+        if leaf == "weight":
+            if val.ndim == 4:
+                params[path + ("kernel",)] = _conv(val)
+            elif val.ndim == 2:
+                params[path + ("kernel",)] = _dense(val)
+            else:
+                params[path + ("scale",)] = _id(val)
+        elif leaf == "bias":
+            params[path + ("bias",)] = _id(val)
+        elif leaf == "running_mean":
+            stats[path + ("mean",)] = _id(val)
+        elif leaf == "running_var":
+            stats[path + ("var",)] = _id(val)
+    return params, stats
 
 
 # ---------------------------------------------------------------------------

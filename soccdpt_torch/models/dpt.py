@@ -79,11 +79,13 @@ class DPT(nn.Module):
     """Backbone + scratch reassemble + fusion decoder + head.
 
     ``backbone`` and ``head`` are module factories. The backbone returns
-    3 or 4 NHWC stage features of widths ``in_channels``. With
-    ``return_features`` the pre-head feature map is returned beside the
-    head output (SOccDPT V3). ``generator`` feeds the backbone's
-    stochastic depth and the head's dropout (SOccDPT V1's seg head) in
-    training mode.
+    3 or 4 NHWC stage features of widths ``in_channels``. ``stem_transpose``
+    (LeViT's) is a factory of a module applied to the fused features after
+    ``refinenet1`` and before the head, given ``features`` input channels.
+    With ``return_features`` the pre-head feature map, the stem's output
+    where there is one, is returned beside the head output (SOccDPT V3).
+    ``generator`` feeds the backbone's stochastic depth and the head's
+    dropout (SOccDPT V1's seg head) in training mode.
     """
 
     def __init__(
@@ -95,6 +97,7 @@ class DPT(nn.Module):
         use_bn: bool = False,
         return_features: bool = False,
         size_refinenet3: Optional[Tuple[int, int]] = None,
+        stem_transpose: Optional[Callable[[int], nn.Module]] = None,
     ):
         super().__init__()
         self.n = len(in_channels)
@@ -109,6 +112,8 @@ class DPT(nn.Module):
         )
         self.refinenet2 = FeatureFusionBlock(features, use_bn)
         self.refinenet1 = FeatureFusionBlock(features, use_bn)
+        if stem_transpose is not None:
+            self.stem_transpose = stem_transpose(features)
         self.head = head()
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
@@ -123,6 +128,8 @@ class DPT(nn.Module):
             path = self.refinenet3(rn[2], size=tuple(rn[1].shape[1:3]))
         path = self.refinenet2(path, rn[1], size=tuple(rn[0].shape[1:3]))
         path = self.refinenet1(path, rn[0])
+        if hasattr(self, "stem_transpose"):
+            path = self.stem_transpose(path)
         out = self.head(path, generator)
         if self.return_features:
             return out, path

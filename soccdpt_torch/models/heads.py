@@ -52,7 +52,8 @@ class SegHead(nn.Module):
     """conv3x3 (no bias) -> BN -> relu -> dropout -> conv1x1 -> 2x bilinear
     (align_corners) -> sigmoid or scaled tanh: (B, H, W, F) ->
     (B, 2H, 2W, C). In training mode BN takes the batch's statistics and
-    the dropout mask is drawn from ``generator``."""
+    the dropout mask is drawn from ``generator``. ``in_features`` (default
+    ``features``) is the width it reads: 64 behind LeViT's stem transpose."""
 
     def __init__(
         self,
@@ -60,11 +61,12 @@ class SegHead(nn.Module):
         features: int = 256,
         sigmoid: bool = True,
         dropout_rate: float = 0.1,
+        in_features: Optional[int] = None,
     ):
         super().__init__()
         self.sigmoid = sigmoid
         self.dropout_rate = dropout_rate
-        self.conv1 = nn.Conv2d(features, features, 3, padding=1, bias=False)
+        self.conv1 = nn.Conv2d(in_features or features, features, 3, padding=1, bias=False)
         self.bn = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
         self.conv2 = nn.Conv2d(features, num_classes, 1)
 

@@ -73,17 +73,20 @@ def layer_norm_f32(mod: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def batch_norm_nhwc(mod: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """BatchNorm in f32 on NHWC. In eval mode it reads the running
-    statistics. In training mode it normalises by the batch's mean and
-    biased variance and moves the running statistics towards them by
+def batch_norm_nhwc(mod: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm in f32 over the last axis of a channels-last tensor (NHWC,
+    or LeViT's and Next-ViT's (B, N, C) tokens, whose statistics are taken
+    over batch and tokens as flax takes them). In eval mode it reads the
+    running statistics. In training mode it normalises by the batch's mean
+    and biased variance and moves the running statistics towards them by
     ``mod.momentum`` (0.1, flax's ``momentum=0.9``). The running variance
     takes the biased batch variance, as flax's ``batch_stats`` does, where
     ``nn.BatchNorm2d`` itself would store the unbiased one."""
     xf = x.float()
     if mod.training:
-        mean = xf.mean(dim=(0, 1, 2))
-        var = xf.var(dim=(0, 1, 2), unbiased=False)
+        dims = tuple(range(x.dim() - 1))
+        mean = xf.mean(dim=dims)
+        var = xf.var(dim=dims, unbiased=False)
         with torch.no_grad():
             mod.running_mean.lerp_(mean, mod.momentum)
             mod.running_var.lerp_(var, mod.momentum)

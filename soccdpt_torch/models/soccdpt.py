@@ -11,7 +11,7 @@
 ``return_raw=True`` gives the net-resolution (inv_depth, seg) pair, which
 is what training differentiates. In training mode (``model.train()``)
 BatchNorm takes batch statistics and the seg head's dropout and the
-Swin-V2 blocks' stochastic depth draw from the ``generator`` argument. The
+Swin blocks' stochastic depth draw from the ``generator`` argument. The
 network runs in ``cfg.compute_dtype``; the geometry tail runs in f32 in
 either case, since kernel K2 accumulates f32 and bf16 coordinates would
 move points by whole voxels.
@@ -57,9 +57,21 @@ def _head_features(cfg: ModelConfig):
     return cfg.head_features_1 or cfg.features, cfg.head_features_2
 
 
+def _head_in(cfg: ModelConfig) -> int:
+    """Channels the heads read: the fused features, or what LeViT's stem
+    transpose makes of them (64)."""
+    stem = dpt_extras(cfg.backbone).get("stem_transpose")
+    return cfg.features if stem is None else stem.out_channels
+
+
 def _depth_head(cfg: ModelConfig) -> Callable[[], DepthHead]:
     hf1, hf2 = _head_features(cfg)
-    return functools.partial(DepthHead, cfg.features, hf1, hf2, cfg.non_negative)
+    return functools.partial(DepthHead, _head_in(cfg), hf1, hf2, cfg.non_negative)
+
+
+def _seg_head(cfg: ModelConfig, sigmoid: bool) -> Callable[[], SegHead]:
+    return functools.partial(SegHead, cfg.num_classes, cfg.features, sigmoid,
+                             in_features=_head_in(cfg))
 
 
 def _dpt(cfg: ModelConfig, remat: bool, head: Callable[[], nn.Module], **kwargs) -> DPT:
@@ -118,10 +130,7 @@ class SOccDPT_V1(_SOccDPT):
         super().__init__(cfg)
         self.depth_net = _dpt(cfg, remat, _depth_head(cfg), use_bn=False)
         # the reference's segmentation DPT forces BatchNorm and a sigmoid
-        self.seg_net = _dpt(
-            cfg, remat, functools.partial(SegHead, cfg.num_classes, cfg.features, True),
-            use_bn=True,
-        )
+        self.seg_net = _dpt(cfg, remat, _seg_head(cfg, True), use_bn=True)
         self._add_occupancy_head()
 
     def forward(
@@ -145,7 +154,7 @@ class SOccDPT_V2(_SOccDPT):
         super().__init__(cfg)
         self.pretrained = _dpt(cfg, remat, IdentityHead)
         self.depth_head = _depth_head(cfg)()
-        self.seg_head = SegHead(cfg.num_classes, cfg.features, cfg.sigmoid)
+        self.seg_head = _seg_head(cfg, cfg.sigmoid)()
         self._add_occupancy_head()
 
     def forward(
@@ -169,7 +178,7 @@ class SOccDPT_V3(_SOccDPT):
     def __init__(self, cfg: ModelConfig, remat: bool = False):
         super().__init__(cfg)
         self.depth_net = _dpt(cfg, remat, _depth_head(cfg), return_features=True)
-        self.seg_head = SegHead(cfg.num_classes, cfg.features, cfg.sigmoid)
+        self.seg_head = _seg_head(cfg, cfg.sigmoid)()
         self._add_occupancy_head()
 
     def forward(

@@ -13,11 +13,15 @@ state by name, with these layout changes:
   ``ConvTranspose2d`` the gradient of a convolution, which is its mirror
   image;
 * dense ``kernel`` (in, out) -> ``weight`` (out, in);
-* LayerNorm / GroupNorm / BatchNorm ``scale`` -> ``weight``;
+* LayerNorm / GroupNorm / BatchNorm ``scale`` -> ``weight`` (BatchNorm of
+  any rank: ``BatchNorm2d`` on maps, ``BatchNorm1d`` on LeViT's and
+  Next-ViT's tokens);
 * BatchNorm ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` /
   ``running_var``;
 * plain parameters (``q_bias``, ``v_bias``, ``logit_scale``, ``cls_token``,
-  ``pos_embed``, ``rel_pos_table``, ``gamma_1``, ``gamma_2``) as they are.
+  ``pos_embed``, ``rel_pos_table``, ``attn_bias``, ``gamma_1``, ``gamma_2``,
+  and the ``kernel`` and ``bias`` of ViT3D's ``DenseGeneral`` projections)
+  as they are.
 
 ``to_jax_variables`` is the way back, for parameters, their gradients and
 the running statistics; ``named_flax_params`` lists the parameters under
@@ -31,6 +35,7 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.nn.modules.batchnorm import _BatchNorm
 
 from .models.bias_cache import build_inference_cache
 
@@ -60,11 +65,11 @@ def _targets(model: nn.Module):
                 yield t, "params", pre + "kernel", "conv"
             elif isinstance(mod, nn.Conv3d) and pname == "weight":
                 yield t, "params", pre + "kernel", "conv3d"
-            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)) and pname == "weight":
+            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, _BatchNorm)) and pname == "weight":
                 yield t, "params", pre + "scale", None
             else:
                 yield t, "params", pre + pname, None
-        if isinstance(mod, nn.BatchNorm2d):
+        if isinstance(mod, _BatchNorm):
             yield mod.running_mean, "batch_stats", pre + "mean", None
             yield mod.running_var, "batch_stats", pre + "var", None
 
@@ -163,9 +168,10 @@ def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill ``model`` in place with weights drawn from ``numpy`` seed
     ``seed``: fan-in-scaled normal kernels, small nonzero biases, norm
     scales near 1, running variances in [0.8, 1.2], BEiT's LayerScale
-    gammas near their init of 0.1, and its relative-position tables with
-    a standard deviation of 0.5, so that the bias they gather shapes the
-    softmax and an attention that dropped it could not pass a comparison.
+    gammas near their init of 0.1, and the relative-position tables (BEiT,
+    Swin-V1) and LeViT's attention biases with a standard deviation of
+    0.5, so that the bias they gather shapes the softmax and an attention
+    that dropped it could not pass a comparison.
     The draws do not depend on the device, so one seed gives one model
     everywhere."""
     rng = np.random.default_rng(seed)
@@ -182,7 +188,7 @@ def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
             elif layout == "conv_transpose":
                 # (in, out, k, k) with stride k: one tap per input channel
                 t.copy_(draw(t.shape, 1.0 / math.sqrt(t.shape[0])))
-            elif name == "rel_pos_table":
+            elif name in ("rel_pos_table", "attn_bias"):
                 t.copy_(draw(t.shape, 0.5))
             elif name in ("gamma_1", "gamma_2"):
                 t.copy_(draw(t.shape, 0.02, 0.1))

@@ -263,10 +263,12 @@ def test_unported_parts_raise():
     from soccdpt_torch.models.backbones import dpt_extras
     from soccdpt_torch.models.soccdpt import build_model
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_backbone("swinl12_384")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        dpt_extras("levit_384")
+    # every backbone of the JAX package is ported; a name it does not know
+    # raises as the JAX registry does, and only LeViT needs DPT wiring
+    with pytest.raises(ValueError, match="not implemented"):
+        make_backbone("resnext101_wsl")
+    assert dpt_extras("swinl12_384") == dpt_extras("next_vit_large_6m") == {}
+    assert set(dpt_extras("levit_384")) == {"size_refinenet3", "stem_transpose"}
     # config/SOccDPT_V4_*.json names a version the JAX package does not have
     with pytest.raises(ValueError, match="V4"):
         build_model(ModelConfig(model_type="dpt_swin2_test_64", version=4), device="cpu")

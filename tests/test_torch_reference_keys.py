@@ -14,6 +14,8 @@ readers resize (bilinear, ``align_corners=True``; the JAX package through
 its resize matrices, the port through ``F.interpolate``): 1e-5, a few f32
 ulps of the table's largest entries (about 4 in magnitude).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,13 +38,17 @@ from test_torch_modules import perturbed_variables
 
 TINY_TYPES = {"dpt_vittest_64": ("vittest_64", 64, 64),
               "dpt_beittest_64": ("beittest_64", 64, 64),
-              "dpt_hybridtest_64": ("hybridtest_64", 64, 64)}
+              "dpt_hybridtest_64": ("hybridtest_64", 64, 64),
+              "dpt_swin1test_64": ("swin1test_64", 64, 64),
+              "dpt_levittest_64": ("levittest_64", 64, 64),
+              "dpt_nextvittest_64": ("nextvittest_64", 64, 64)}
 for _name, _spec in TINY_TYPES.items():
     JAX_MODEL_TYPES.setdefault(_name, _spec)
     MODEL_TYPES.setdefault(_name, _spec)
 
 FAMILY = {"dpt_swin2_test_64": "swin", "dpt_vittest_64": "vit", "dpt_beittest_64": "vit",
-          "dpt_hybridtest_64": "hybrid"}
+          "dpt_hybridtest_64": "hybrid", "dpt_swin1test_64": "swin",
+          "dpt_levittest_64": "levit", "dpt_nextvittest_64": "next_vit"}
 
 
 def _variables(model_type, version, seed):
@@ -112,13 +118,21 @@ def test_v3_swin_keys_of_the_jax_tests():
 @pytest.mark.parametrize("model_type,version", [
     ("dpt_swin2_test_64", 1), ("dpt_swin2_test_64", 2), ("dpt_swin2_test_64", 3),
     ("dpt_vittest_64", 3), ("dpt_hybridtest_64", 3),
+    ("dpt_swin1test_64", 1), ("dpt_swin1test_64", 2), ("dpt_swin1test_64", 3),
+    ("dpt_levittest_64", 1), ("dpt_levittest_64", 2), ("dpt_levittest_64", 3),
+    ("dpt_nextvittest_64", 1), ("dpt_nextvittest_64", 2), ("dpt_nextvittest_64", 3),
 ])
 def test_every_leaf_lands_as_in_jax(model_type, version):
     """A state dict written from a whole JAX tree (V1's two DPTs, V2's
     trunk and heads under the reference's ``seg_ead`` spelling, V3) lands
     every leaf, as the JAX reader does. The hybrid's ViT patch-embed keys
     are claimed twice by the JAX converters (``patch_embed`` and
-    ``patch_embed_proj``): both readers report the first two unused."""
+    ``patch_embed_proj``): both readers report the first two unused.
+    Swin-V1 keys (a full qkv bias, ``relative_position_bias_table``) go
+    through the Swin converter; LeViT's carry ``scratch.stem_transpose`` and
+    its flat ``blocks`` numbered as the readers number them by default (the
+    stage depths of ``levit_384``, of which the test model's are a prefix);
+    Next-ViT's carry the official module names."""
     family = FAMILY[model_type]
     source = _variables(model_type, version, seed=0)
     sd = reference_state_dict(source, version, family)
@@ -205,7 +219,47 @@ def test_load_torch_state_dict_unwraps_as_jax(tmp_path, wrap):
 
 @pytest.mark.parametrize("family", ["levit", "next_vit"])
 def test_unported_families_raise(family):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ti.convert_backbone_dpt_keys({}, family=family)
+    """Every family of the JAX package is read now: an empty state dict
+    converts to empty trees, as in JAX, and only an unknown family raises."""
+    assert ti.convert_backbone_dpt_keys({}, family=family) == ({}, {})
+    assert jti.convert_backbone_dpt_keys({}, family=family) == ({}, {})
+    with pytest.raises(ValueError, match="unknown importer family"):
+        ti.convert_backbone_dpt_keys({}, family="resnext")
     assert ti.family_of("levit_384") == jti.family_of("levit_384") == "levit"
+    assert ti.family_of("next_vit_large_6m") == jti.family_of("next_vit_large_6m") == "next_vit"
+    assert ti.family_of("swinl12_384") == jti.family_of("swinl12_384") == "swin"
     assert ti.family_of("vitb_rn50_384") == jti.family_of("vitb_rn50_384") == "hybrid"
+
+
+def test_levit_blocks_by_the_stage_depths():
+    """LeViT's reference keys number the flat ``blocks`` by the model's own
+    stage depths: renumbered as timm numbers ``levittest_64``'s (2, 2, 2),
+    both readers, given those depths, land every leaf."""
+    source = _variables("dpt_levittest_64", 3, seed=0)
+    sd = reference_state_dict(source, 3, "levit")
+    default = {name: n for n, (name, _) in ti._levit_block_names((4, 4, 4)).items()}
+    own = {name: n for n, (name, _) in ti._levit_block_names((2, 2, 2)).items()}
+    assert ti._levit_block_names((2, 2, 2)) == jti._levit_block_names((2, 2, 2))
+    renumber = {default[name]: own[name] for name in own}
+    moved = {}
+    for key, val in sd.items():
+        m = re.match(r"(.*pretrained\.model\.blocks\.)(\d+)(\..*)$", key)
+        moved[key if not m else f"{m.group(1)}{renumber[int(m.group(2))]}{m.group(3)}"] = val
+    assert len(moved) == len(sd) and moved != sd
+
+    def reader(module):
+        def run(s):
+            p, st = module.convert_levit_dpt_keys(s, "depth_net.", (2, 2, 2))
+            hp, hs = module.convert_seg_head_keys(s)
+            flat_p = {("depth_net",) + k: v for k, v in p.items()}
+            flat_p.update({("seg_head",) + k: v for k, v in hp.items()})
+            flat_s = {("depth_net",) + k: v for k, v in st.items()}
+            flat_s.update({("seg_head",) + k: v for k, v in hs.items()})
+            return module._nest(flat_p), module._nest(flat_s)
+        return run
+
+    reports, fresh = check_port_against_jax("dpt_levittest_64", 3, moved, reader(jti), reader(ti))
+    for coll in ("params", "batch_stats"):
+        r = reports[coll]
+        assert r["loaded"] == r["total"] == len(_flat(fresh.get(coll, {}))), coll
+        assert not r["unused"] and not r["mismatched"]

@@ -2,8 +2,8 @@
 outputs the caller owns, a weight load never served stale, ``serve_stream``
 against sequential serving, a second serving fn that keeps the first's
 graphs, a request after ``model.train()`` served as before it, the
-ViT-hybrid served on the card against the CPU's plain versions, and a
-capture that fails.
+ViT-hybrid and the Swin-V1, LeViT and Next-ViT test configs served on the
+card against the CPU's plain versions, and a capture that fails.
 
 Every test here carries the ``gpu`` marker and skips without a card. This
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -18,7 +18,8 @@ is held to K2's bound, rtol = atol = 1e-5 (tests/test_sorted_segment_sum.py:
 its atomics add in an order the card chooses on every run). The hybrid on
 the card in f32 (TF32 off) is held to the CPU on the ladder of
 tests/test_composition_oracle.py: 1e-4 on inverse depth and segmentation,
-5e-3 m on points, under 1 % of the grid's mass mismatched.
+5e-3 m on points, under 1 % of the grid's mass mismatched; so are the
+last three families.
 """
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ import torch
 
 from soccdpt_torch.core.config import MODEL_TYPES, CameraConfig, ModelConfig, OccupancyConfig
 from soccdpt_torch.kernels.global_attention import global_attention
+from soccdpt_torch.kernels.segment_sum import segment_sum
 from soccdpt_torch.models.soccdpt import build_model
 from soccdpt_torch.serving import GraphedFunction, make_serving_fn, serve_stream
 
@@ -35,7 +37,11 @@ CAM = dict(fx=100.0, fy=100.0, cx=32.0, cy=24.0, width=64, height=48)
 OCC = dict(grid_size=(16, 16, 8), pc_scale=(1.0, 1.0, 1.0), pc_shift=(2.0, 2.0, 0.0),
            correction_angle=(0.0, 0.0, 0.0))
 GRID_TOL = 1e-5
-MODEL_TYPES.setdefault("dpt_hybridtest_64", ("hybridtest_64", 64, 64))
+for _name, _backbone in (("dpt_hybridtest_64", "hybridtest_64"),
+                         ("dpt_swin1test_64", "swin1test_64"),
+                         ("dpt_levittest_64", "levittest_64"),
+                         ("dpt_nextvittest_64", "nextvittest_64")):
+    MODEL_TYPES.setdefault(_name, (_backbone, 64, 64))
 
 
 @pytest.fixture(scope="module")
@@ -192,6 +198,42 @@ def test_hybrid_served_on_the_card_matches_the_cpu(card, compute_occ):
         total = float(want[3].sum())
         assert total > 0
         assert float((got[3].cpu() - want[3]).abs().sum()) / total < 0.01
+
+
+@pytest.mark.parametrize("model_type", ["dpt_swin1test_64", "dpt_levittest_64",
+                                        "dpt_nextvittest_64"])
+def test_last_three_families_served_on_the_card_match_the_cpu(card, model_type):
+    """The Swin-V1, LeViT and Next-ViT test configs, V3 with the grid,
+    through a graph in f32: equal to the eager request, and held to the
+    same weights served on the CPU on the ladder; K2 once a request.
+    With cuDNN's deterministic algorithms: without them two eager runs of
+    the LeViT request in f32 differ in the last bit (3e-8 in inverse
+    depth), so no graph could equal one of them."""
+    cfg, model = tiny_model(card, 0, model_type=model_type)
+    f = frames(2, 7)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = make_serving_fn(cfg, model, compute_occ=True)(f)
+        before = segment_sum.launches
+        eager = make_serving_fn(cfg, model, compute_occ=True, graph=False)(f)
+        assert segment_sum.launches - before == 1
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cudnn.deterministic = deterministic
+    assert_same(got, eager)
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    want = make_serving_fn(cfg, cpu, compute_occ=True, device="cpu")(f)
+    for g, w, atol, name in zip(got[:3], want[:3], (1e-4, 1e-4, 5e-3),
+                                ("inv_depth", "seg", "points")):
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=atol, msg=name)
+    total = float(want[3].sum())
+    assert total > 0
+    assert float((got[3].cpu() - want[3]).abs().sum()) / total < 0.01
 
 
 def test_a_capture_that_fails_raises(card):
