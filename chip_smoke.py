@@ -109,7 +109,26 @@ Phases, each of which fails the run on any error:
    ``amp``, encoder 0.5, patch-wise 0.5), four steps, after one f32 loss
    and its gradients on the card against the CPU's; K6 12 times a patch
    step's forward and K7 once for each ViT block its backward runs
-   through; step times, a profile of one step, peak memory.
+   through; step times, a profile of one step, peak memory;
+9. deployment and baselines, on the same tree: ``cli/export.py`` of the
+   flagship from a reference-layout ``.pth`` (dynamic batch; K1 is a
+   ``soccdpt::window_attention`` node of the program, 12 of them), run by
+   ``python -m soccdpt_torch.cli.run_exported`` in fresh processes at
+   batch 1 and 2, and loaded here at batch 1 and 2 against the eager model
+   (bit for bit, or within the ladder of tests/test_composition_oracle.py),
+   with K1's launches a forward; the same with points at 1920x1080 and for
+   ``dpt_hybrid_384`` (12 K6 nodes); export seconds and bytes, the
+   program's wall, as a CUDA graph and its device time against the eager
+   model's; ``cli/eval_others.py``'s builtin adapter on the flagship and
+   its ``pt2:`` adapter on the program over the tree (equal metrics),
+   ``--list``, an external name's clean hub error (the hub a stub: no
+   network); ``cli/datasets_analysis.py``; MiDaS v2.1 at full width
+   (ResNeXt-101 32x8d), 256x256: the card's f32 against the CPU's, its own
+   spread under a nudge of the image with drawn and with calibrated
+   BatchNorm statistics, bf16 walls and device time at batch 1 and 2;
+   identical grid requests of the flagship compared bit for bit (K2's
+   atomics); a bare call's host µs through the custom ops against the
+   launch alone.
 
 It prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -120,6 +139,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3309,47 +3329,487 @@ def cli_eval(torch, card, tree, tmp, ckpt, counters, record):
     return launches
 
 
-def phase_train_eval_clis(torch, card):
+def write_cli_tree(tmp):
+    """The BDD fixture tree of 2 x 10 frames at 1920x1080 that phases 8 and
+    9 read, under ``tmp``."""
+    from soccdpt_torch.data import synthetic
+
+    tree = tmp / "bdd"
+    t0 = time.perf_counter()
+    synthetic.make_bdd_fixture(str(tree), **CLI_FIXTURE)
+    log(f"clis: fixture tree, 2 sequences x {CLI_FIXTURE['frames_per_seq']} frames at "
+        f"1920x1080, written in {time.perf_counter() - t0:.1f} s")
+    return tree
+
+
+def phase_train_eval_clis(torch, card, tmp, tree):
     """``soccdpt_torch.cli.train`` and ``soccdpt_torch.cli.eval`` at full
-    width on a BDD fixture tree of 2 x 10 frames at 1920x1080: the flagship
-    from a reference-layout ``.pth``, ``dpt_hybrid_384`` from its published
-    sweep file, the eval CLI on the flagship's checkpoint. Each run's launch
-    counts are set to 0 just before it and read just after; returns them by
-    path."""
+    width on the BDD fixture tree ``tree`` (``write_cli_tree``), working in
+    ``tmp``: the flagship from a reference-layout ``.pth``,
+    ``dpt_hybrid_384`` from its published sweep file, the eval CLI on the
+    flagship's checkpoint. Each run's launch counts are set to 0 just
+    before it and read just after; returns them by path."""
     import os
-    import tempfile
 
     from soccdpt_torch.cli import train as tcli
     from soccdpt_torch.core import torch_import as ti
-    from soccdpt_torch.data import synthetic
 
     counters = occ_counters()
     cwd = os.getcwd()
     launches = {}
-    with tempfile.TemporaryDirectory(prefix="clis_") as tmp_name:
-        tmp = Path(tmp_name)
-        tree = tmp / "bdd"
+    os.chdir(tmp)
+    try:
+        with phase("training CLI dpt_swin2_tiny_256"):
+            record = RECORD.setdefault("train_cli_swin", {"sweep": CLI_SWIN_SWEEP})
+            launches["train_cli_swin"], ckpt = cli_swin(
+                torch, card, tcli, ti, tree, tmp, counters, record)
+        torch.cuda.empty_cache()
+        with phase("eval CLI dpt_swin2_tiny_256"):
+            launches["eval_cli_swin"] = cli_eval(
+                torch, card, tree, tmp, ckpt, counters, RECORD.setdefault("eval_cli_swin", {}))
+        torch.cuda.empty_cache()
+        with phase("training CLI dpt_hybrid_384"):
+            launches["train_cli_hybrid"] = cli_hybrid(
+                torch, card, tcli, tree, tmp, counters,
+                RECORD.setdefault("train_cli_hybrid", {}))
+    finally:
+        os.chdir(cwd)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: deployment (export, run_exported), eval_others, MiDaS v2.1,
+# datasets_analysis, K2's determinism, the custom ops' dispatch
+# ---------------------------------------------------------------------------
+
+DEPLOY_FLAGSHIP, DEPLOY_HYBRID = "dpt_swin2_tiny_256", "dpt_hybrid_384"
+# kernel launches of one forward of each exported program
+DEPLOY_PER_FORWARD = {DEPLOY_FLAGSHIP: {"window_attention": 12, "global_attention": 0},
+                      DEPLOY_HYBRID: {"window_attention": 0, "global_attention": 12}}
+DEPLOY_RUN_ITERS = 50  # forwards behind run_exported's frames/s line
+DEPLOY_REPS = 20  # forwards whose wall is timed, median
+# the program against the eager model, should they not be equal bit for bit:
+# the ladder of tests/test_composition_oracle.py (inv_depth, seg, points)
+DEPLOY_LADDER = (1e-4, 1e-4, 5e-3)
+EVAL_OTHERS_SAMPLES = 4
+# the builtin adapter's metrics against the pt2 adapter's: one bf16 step
+# (2^-8) of each metric. The program equals the eager model bit for bit, so
+# the metrics are expected equal; the step covers a program whose ATen
+# calls round otherwise
+EVAL_OTHERS_RTOL = 2.0**-8
+MIDAS_ATOL = 1e-4  # card f32 vs CPU, TF32 off: the ladder's inv_depth rung
+MIDAS_NUDGE = 1e-7  # relative nudge of the image for the card's own f32 spread
+MIDAS_REPS = 10
+ANALYSIS_SAMPLES = 6
+K2_REPEATS = 5  # identical grid requests whose grids are compared bit for bit
+
+
+def deploy_counters():
+    from soccdpt_torch.kernels import ops
+
+    return ops.COUNTERS
+
+
+def reset_counts(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def op_nodes(program):
+    """The ``soccdpt::`` nodes of an exported program's graph, by op."""
+    out = {}
+    for node in program.graph.nodes:
+        target = str(node.target)
+        if node.op == "call_function" and target.startswith("soccdpt."):
+            out[target] = out.get(target, 0) + 1
+    return out
+
+
+def run_exported_process(path, batch, size):
+    """``python -m soccdpt_torch.cli.run_exported`` on ``path`` in a fresh
+    process: its seconds and its lines, parsed."""
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "soccdpt_torch.cli.run_exported", "-m", str(path),
+         "--batch", str(batch), "--size", str(size), "--iters", str(DEPLOY_RUN_ITERS)],
+        capture_output=True, text=True, cwd=HERE, timeout=600)
+    seconds = time.perf_counter() - t0
+    if done.returncode != 0:
+        fail(f"run_exported {path.name} batch {batch}: exit {done.returncode}: "
+             f"{done.stderr[-3000:]}")
+    lines = done.stdout.splitlines()
+    shapes = next(line for line in lines if line.startswith("outputs:"))
+    launched = next(line for line in lines if line.startswith("kernel launches in one forward:"))
+    launched = {name: int(n) for name, n in (
+        item.rsplit(" ", 1) for item in launched.split(": ", 1)[1].split(", "))}
+    rate = lines[-1]
+    return {"seconds": seconds, "outputs": shapes, "launches_per_forward": launched,
+            "hz": float(rate.split(" Hz")[0]),
+            "ms_per_forward": float(rate.split("(")[1].split(" ms")[0]), "line": rate}
+
+
+def check_program(torch, card, key, path, model_type, eager, size, with_points, counters, record):
+    """The exported program at ``path``, loaded in this process, against the
+    eager model on seeded inputs at batch 1 and 2: its nodes, the kernels it
+    launches a forward (counts set to 0 just before, read just after), its
+    outputs; then its wall, as a CUDA graph and its device time at batch 1,
+    beside the eager model's. Returns the launches of the checked forwards."""
+    from soccdpt_torch.cli.run_exported import load_program
+
+    program = torch.export.load(str(path))
+    nodes = op_nodes(program)
+    del program
+    want_per = DEPLOY_PER_FORWARD[model_type]
+    want_nodes = {f"soccdpt.{name}.default": n for name, n in want_per.items() if n}
+    t0 = time.perf_counter()
+    module = load_program(str(path), torch.device("cuda"))
+    load_s = time.perf_counter() - t0
+    launched = {name: 0 for name in counters}
+    checks = {}
+
+    def eager_out(x):
+        return eager(x, compute_occ=False)[:3] if with_points else eager(x, return_raw=True)
+
+    for B in (1, 2):
+        g = torch.Generator(device="cuda").manual_seed(100 + B)
+        x = torch.randn(B, 3, size, size, device="cuda", generator=g)
+        reset_counts(counters)
+        with torch.no_grad():
+            got = module(x)
+        torch.cuda.synchronize()
+        per = {name: fn.launches for name, fn in counters.items()}
+        for name in launched:
+            launched[name] += per[name]
+        with torch.no_grad():
+            want = eager_out(x)
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        gaps = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
+        checks[f"b{B}"] = {"launches_per_forward": per, "bit_for_bit": equal, "max_abs_gap": gaps,
+                           "shapes": [list(o.shape) for o in got],
+                           "finite": all(bool(torch.isfinite(o).all()) for o in got)}
+        if [o.shape for o in got] != [o.shape for o in want] or not checks[f"b{B}"]["finite"]:
+            fail(f"{key}: batch {B}: outputs {checks[f'b{B}']['shapes']} (finite "
+                 f"{checks[f'b{B}']['finite']}) against eager {[list(o.shape) for o in want]}")
+        if per != want_per:
+            fail(f"{key}: batch {B}: a forward launched {per}, expected {want_per}")
+        if not equal and any(gap > tol for gap, tol in zip(gaps, DEPLOY_LADDER)):
+            fail(f"{key}: batch {B}: the program left the eager model by {gaps}")
+    if nodes != want_nodes:
+        fail(f"{key}: the program's soccdpt nodes are {nodes}, expected {want_nodes}")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x1 = torch.randn(1, 3, size, size, device="cuda", generator=g)
+    with torch.no_grad():
+        program_ms = time_requests(torch, module, [x1], DEPLOY_REPS)["median_ms"]
+        eager_ms = time_requests(torch, eager_out, [x1], DEPLOY_REPS)["median_ms"]
+        graph_ms = cuda_ms(torch, lambda: module(x1), iters=5)
+        ops, device_us = cuda_launches(torch, lambda: module(x1))
+    record[key] = {"model_type": model_type, "with_points": with_points, "nodes": nodes,
+                   "load_seconds": load_s, "checks": checks, "program_ms_b1": program_ms,
+                   "eager_ms_b1": eager_ms, "program_graph_ms_b1": graph_ms,
+                   "program_device_ms_b1": sum(device_us.values()) / 1e3,
+                   "program_device_ops_b1": ops}
+    log(f"{key}: {nodes}; loaded in {load_s:.1f} s; batch 1 / 2 launches "
+        f"{checks['b1']['launches_per_forward']} / {checks['b2']['launches_per_forward']}, "
+        f"bit for bit {checks['b1']['bit_for_bit']} / {checks['b2']['bit_for_bit']} (max gaps "
+        f"{checks['b1']['max_abs_gap']}); batch 1: program {program_ms:.3f} ms, eager "
+        f"{eager_ms:.3f} ms, the program as a CUDA graph {graph_ms:.3f} ms, device "
+        f"{record[key]['program_device_ms_b1']:.3f} ms in {ops} operations ({card})")
+    del module
+    return launched
+
+
+def deploy_exports(torch, card, tmp, counters, record):
+    """Export the flagship from a reference-layout ``.pth`` (raw, and with
+    points at camera resolution) and the hybrid from its seed; run the raw
+    flagship's program through ``run_exported`` in fresh processes and
+    every program in this one. Returns (launches by path, the ``.pth``, the
+    raw flagship's program)."""
+    from soccdpt_torch.cli.export import export_model
+    from soccdpt_torch.cli.train import load_weights
+    from soccdpt_torch.core.config import ModelConfig
+    from soccdpt_torch.models.bias_cache import build_inference_cache
+    from soccdpt_torch.models.soccdpt import build_model
+    from soccdpt_torch.weights import to_jax_variables
+
+    source = build_model(ModelConfig(model_type=DEPLOY_FLAGSHIP), device="cuda", seed=0)
+    with torch.no_grad():  # inverse depth in a well-conditioned band, as phase 4
+        source.depth_net.head.conv3.weight.mul_(0.01)
+        source.depth_net.head.conv3.bias.fill_(0.3)
+    pth = tmp / "flagship_reference.pth"
+    sd = reference_state_dict(to_jax_variables(source), 3, "swin")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pth)
+    del source
+    launches = {}
+    for key, model_type, load, with_points in (
+            ("deploy_flagship", DEPLOY_FLAGSHIP, pth, False),
+            ("deploy_flagship_points", DEPLOY_FLAGSHIP, pth, True),
+            ("deploy_hybrid", DEPLOY_HYBRID, None, False)):
+        path = tmp / f"{key}.pt2"
         t0 = time.perf_counter()
-        synthetic.make_bdd_fixture(str(tree), **CLI_FIXTURE)
-        log(f"clis: fixture tree, 2 sequences x {CLI_FIXTURE['frames_per_seq']} frames at "
-            f"1920x1080, written in {time.perf_counter() - t0:.1f} s")
-        os.chdir(tmp)
-        try:
-            with phase("training CLI dpt_swin2_tiny_256"):
-                record = RECORD.setdefault("train_cli_swin", {"sweep": CLI_SWIN_SWEEP})
-                launches["train_cli_swin"], ckpt = cli_swin(
-                    torch, card, tcli, ti, tree, tmp, counters, record)
-            torch.cuda.empty_cache()
-            with phase("eval CLI dpt_swin2_tiny_256"):
-                launches["eval_cli_swin"] = cli_eval(
-                    torch, card, tree, tmp, ckpt, counters, RECORD.setdefault("eval_cli_swin", {}))
-            torch.cuda.empty_cache()
-            with phase("training CLI dpt_hybrid_384"):
-                launches["train_cli_hybrid"] = cli_hybrid(
-                    torch, card, tcli, tree, tmp, counters,
-                    RECORD.setdefault("train_cli_hybrid", {}))
-        finally:
-            os.chdir(cwd)
+        export_model(model_type, 3, str(path), load=None if load is None else str(load),
+                     with_points=with_points)
+        export_s = time.perf_counter() - t0
+        size = ModelConfig(model_type=model_type).net_size[1]
+        record.setdefault("exports", {})[key] = {"seconds": export_s,
+                                                 "bytes": path.stat().st_size}
+        log(f"{key}: exported in {export_s:.1f} s, {path.stat().st_size} bytes")
+        if key == "deploy_flagship":
+            runs = {f"b{B}": run_exported_process(path, B, size) for B in (1, 2)}
+            record["run_exported"] = runs
+            for B, run in runs.items():
+                log(f"run_exported {B} (a fresh process, {run['seconds']:.1f} s): "
+                    f"{run['outputs']}; launches a forward {run['launches_per_forward']}; "
+                    f"{run['line']} ({card})")
+                if run["launches_per_forward"] != DEPLOY_PER_FORWARD[model_type]:
+                    fail(f"run_exported {B}: launches a forward {run['launches_per_forward']}")
+            want = {"b1": "outputs: (1, 256, 256) (1, 3, 256, 256)",
+                    "b2": "outputs: (2, 256, 256) (2, 3, 256, 256)"}
+            if {B: run["outputs"] for B, run in runs.items()} != want:
+                fail(f"run_exported: {[run['outputs'] for run in runs.values()]}")
+        eager = build_model(ModelConfig(model_type=model_type, compute_dtype="bfloat16"),
+                            device="cuda")
+        if load is not None:
+            load_weights(eager, str(load), 3)
+        build_inference_cache(eager.eval())
+        launches[key] = check_program(torch, card, key, path, model_type, eager, size,
+                                      with_points, counters, record)
+        del eager
+        if key != "deploy_flagship":
+            path.unlink()
+        torch.cuda.empty_cache()
+    return launches, pth, tmp / "deploy_flagship.pt2"
+
+
+def deploy_eval_others(torch, card, tree, pth, program, counters, record):
+    """``cli/eval_others.py`` on the fixture tree: the builtin adapter on the
+    flagship (the ``.pth`` loaded) and the ``pt2:`` adapter on its exported
+    program, ``--list``, and an external name's clean hub error. The hub is
+    a stub that raises as an unreachable one does: no outside host is
+    contacted. Returns the adapters' launches."""
+    import contextlib
+    import io
+
+    from soccdpt_torch.cli import eval_others as eo
+    from soccdpt_torch.cli.train import build_datasets
+    from soccdpt_torch.core.config import TrainConfig
+
+    dataset = build_datasets(TrainConfig(dataset="bdd", base_path=str(tree)), DEPLOY_FLAGSHIP)[0]
+    launches, metrics, seconds = {}, {}, {}
+    for key, make in (("eval_others_builtin",
+                       lambda: eo.builtin_adapter(DEPLOY_FLAGSHIP, load=str(pth))),
+                      ("eval_others_pt2", lambda: eo.load_adapter(f"pt2:{program}"))):
+        adapter = make()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        metrics[key] = eo.evaluate_adapter(adapter, dataset, EVAL_OTHERS_SAMPLES)
+        seconds[key] = time.perf_counter() - t0
+        launches[key] = {name: fn.launches for name, fn in counters.items()}
+        del adapter
+        if launches[key]["window_attention"] != 12 * EVAL_OTHERS_SAMPLES:
+            fail(f"{key}: launches {launches[key]}, expected K1 12 times a sample")
+    builtin, pt2 = metrics["eval_others_builtin"], metrics["eval_others_pt2"]
+    gaps = {k: abs(builtin[k] - pt2[k]) / max(abs(builtin[k]), 1e-12) for k in builtin}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        eo.main(["--list"])
+    listed = json.loads(buf.getvalue())
+    hub_error = None
+    orig = torch.hub.load
+
+    def unreachable(*args, **kwargs):
+        raise OSError("the hub is unreachable: no network")
+
+    torch.hub.load = unreachable
+    try:
+        eo.external_adapter("DPT_Hybrid")(np.asarray(dataset[0]["image_raw"]))
+    except RuntimeError as e:
+        hub_error = str(e)
+    finally:
+        torch.hub.load = orig
+    record["eval_others"] = {"samples": EVAL_OTHERS_SAMPLES, "metrics": metrics,
+                             "relative_gaps": gaps, "rtol": EVAL_OTHERS_RTOL,
+                             "seconds": seconds, "launches": launches, "list": listed,
+                             "hub_error": hub_error}
+    log(f"eval_others over {EVAL_OTHERS_SAMPLES} fixture samples: builtin {builtin} in "
+        f"{seconds['eval_others_builtin']:.1f} s; pt2 {pt2} in "
+        f"{seconds['eval_others_pt2']:.1f} s; largest relative gap {max(gaps.values()):.3g}; "
+        f"--list schemes {listed['file_schemes']}; hub error: {hub_error}")
+    if not (np.isfinite(list(builtin.values())).all() and np.isfinite(list(pt2.values())).all()):
+        fail(f"eval_others: metrics not finite: {builtin} {pt2}")
+    if builtin.keys() != pt2.keys() or max(gaps.values()) > EVAL_OTHERS_RTOL:
+        fail(f"eval_others: the pt2 adapter's metrics left the builtin's: {gaps}")
+    if listed["file_schemes"] != ["pt2:<path>", "onnx:<path>"] or len(listed["external"]) != 7:
+        fail(f"eval_others --list: {listed}")
+    if hub_error is None or "DPT_Hybrid" not in hub_error or "torch.hub" not in hub_error:
+        fail(f"eval_others: an external name without a hub gave {hub_error!r}")
+    return launches
+
+
+def deploy_analysis(tree, record):
+    import contextlib
+    import io
+
+    from soccdpt_torch.cli import datasets_analysis
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = datasets_analysis.main(["-dt", "bdd", "-b", str(tree), "--max_samples",
+                                      str(ANALYSIS_SAMPLES)])
+    seconds = time.perf_counter() - t0
+    record["datasets_analysis"] = {"result": out, "seconds": seconds}
+    log(f"datasets_analysis on the fixture tree in {seconds:.1f} s: {out}")
+    fractions = out["class_pixel_fraction"]
+    if (json.loads(buf.getvalue()) != out or out["analyzed"] != ANALYSIS_SAMPLES
+            or len(fractions) != 3 or not 0.0 < sum(fractions) <= 3.0
+            or not np.isfinite(list(out["disparity"].values())).all()):
+        fail(f"datasets_analysis: {out}")
+
+
+def deploy_midas(torch, card, record):
+    """MiDaS v2.1 at full width (ResNeXt-101 32x8d), 256x256, weights from
+    numpy seed 0 with their drawn BatchNorm statistics: the card's f32
+    output against the CPU's (TF32 off) at batch 1 and 2; the card's own
+    f32 spread under a nudge of the image, with the drawn statistics and
+    with statistics set from two frames (``calibrate``); bf16 walls and
+    device time at batch 1 and 2."""
+    from soccdpt_torch.models.midas import MidasNetV21
+    from soccdpt_torch.weights import init_random_
+
+    t0 = time.perf_counter()
+    cpu = init_random_(MidasNetV21(), seed=0).eval()
+    weights = sum(p.numel() for p in cpu.parameters())
+    x = torch.randn(2, 3, 256, 256, generator=torch.Generator().manual_seed(7))
+    set_tf32(torch, False)
+    with torch.no_grad():
+        want = cpu(x)
+        model = copy.deepcopy(cpu).cuda()
+        xc = x.cuda()
+        errs = {f"b{B}": float((model(xc[:B]).cpu() - want[:B]).abs().max()) for B in (1, 2)}
+        got = model(xc)
+        nudged = float((model(xc * (1 + MIDAS_NUDGE)) - got).abs().max())
+        calibrated_model = copy.deepcopy(model)
+        norms = [m for m in calibrated_model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+        for m in norms:
+            m.momentum = 1.0
+        calibrated_model.train()
+        calibrated_model(torch.randn(2, 3, 256, 256, device="cuda",
+                                     generator=torch.Generator(device="cuda").manual_seed(8)))
+        calibrated_model.eval()
+        cal = calibrated_model(xc)
+        nudged_cal = float((calibrated_model(xc * (1 + MIDAS_NUDGE)) - cal).abs().max())
+    del calibrated_model, cpu
+    stats = {"max": float(got.abs().max()), "positive_share": float((got > 0).float().mean()),
+             "median": float(got.median())}
+    record["midas"] = {"weights": weights, "card_vs_cpu_max_abs_err": errs, "atol": MIDAS_ATOL,
+                       "output": stats, "nudged_spread_drawn": nudged,
+                       "nudged_spread_calibrated": nudged_cal,
+                       "calibrated_output_max": float(cal.abs().max()),
+                       "build_and_check_seconds": time.perf_counter() - t0}
+    log(f"midas v2.1 ({weights} weights), card vs CPU f32 (TF32 off): max |err| {errs} (atol "
+        f"{MIDAS_ATOL}); output {stats}; the card's own spread under a {MIDAS_NUDGE} nudge: "
+        f"{nudged:.3g} with the drawn statistics, {nudged_cal:.3g} with statistics set from two "
+        f"frames")
+    if not bool(torch.isfinite(got).all()) or tuple(got.shape) != (2, 256, 256):
+        fail(f"midas: bad output {tuple(got.shape)}")
+    if max(errs.values()) > MIDAS_ATOL or stats["positive_share"] < 0.1:
+        fail(f"midas: the card's f32 output left the CPU's: {errs}, {stats}")
+    set_tf32(torch, True)
+    model16 = MidasNetV21(dtype=torch.bfloat16)
+    model16.load_state_dict(model.state_dict())
+    model16 = model16.cuda().eval()
+    del model
+    times = {}
+    with torch.no_grad():
+        for B in (1, 2):
+            xb = xc[:B]
+            wall = time_requests(torch, model16, [xb], MIDAS_REPS)["median_ms"]
+            ops, device_us = cuda_launches(torch, lambda: model16(xb))
+            top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
+            times[f"b{B}"] = {"eager_wall_ms": wall, "device_ms": sum(device_us.values()) / 1e3,
+                              "device_ops": ops, "top_device_us": top}
+            log(f"midas bf16 batch {B}: eager wall {wall:.3f} ms, device "
+                f"{times[f'b{B}']['device_ms']:.3f} ms in {ops} operations ({card}); top: "
+                f"{[(k[:50], round(us, 1)) for k, us in top[:4]]}")
+        out16 = model16(xc)
+    if not bool(torch.isfinite(out16).all()):
+        fail("midas: the bf16 output is not finite")
+    record["midas"]["bf16"] = times
+    record["midas"]["bf16_vs_f32_max_abs"] = float((out16.float() - got).abs().max())
+    del model16
+
+
+def deploy_k2_determinism(torch, card, record):
+    """Two (``K2_REPEATS``) identical grid requests of the flagship, through
+    its CUDA graph and eagerly, at batch 1 and 2: are the grids equal bit
+    for bit? K2 adds each run of equal slots to the grid with a float
+    atomic, in the order the warps reach it."""
+    from soccdpt_torch.core.config import ModelConfig
+    from soccdpt_torch.models.soccdpt import build_model
+    from soccdpt_torch.serving import make_serving_fn
+
+    cfg = ModelConfig(model_type=DEPLOY_FLAGSHIP, compute_dtype="bfloat16")
+    model = build_model(cfg, device="cuda", seed=0)
+    with torch.no_grad():
+        model.depth_net.head.conv3.weight.mul_(0.01)
+        model.depth_net.head.conv3.bias.fill_(0.3)
+    probe = make_serving_fn(cfg, model, graph=False)(frames_u8(torch, 1, 100))
+    cfg = calibrated(cfg, probe[2])
+    model.cfg = cfg
+    result = {}
+    for graph in (True, False):
+        serve = make_serving_fn(cfg, model, compute_occ=True, graph=graph)
+        for B in (1, 2):
+            frame = frames_u8(torch, B, 300 + B)
+            grids = [serve(frame)[3].clone() for _ in range(K2_REPEATS)]
+            same = [torch.equal(grids[0], g) for g in grids[1:]]
+            result[f"{'graph' if graph else 'eager'}_b{B}"] = {
+                "equal_bit_for_bit": all(same), "equal_pairs": sum(same),
+                "max_abs_diff": max(float((grids[0] - g).abs().max()) for g in grids[1:]),
+                "occupied_cells": int((grids[0].sum(-1) > 0).sum()),
+                "mass": float(grids[0].sum())}
+        del serve
+    record["k2_determinism"] = {"repeats": K2_REPEATS, **result}
+    log(f"K2 determinism, {K2_REPEATS} identical flagship grid requests: "
+        + "; ".join(f"{k} equal {v['equal_bit_for_bit']} (max diff {v['max_abs_diff']:.3g}, "
+                    f"{v['occupied_cells']} cells)" for k, v in result.items()))
+    if any(v["occupied_cells"] < 100 for v in result.values()):
+        fail(f"K2 determinism: the grids are near empty: {result}")
+
+
+def deploy_dispatch(torch, card, record):
+    """A bare call's host microseconds: the public function (the custom op)
+    against the module's ``_launch`` (the kernel's launch, which the
+    function called before the op), K1 at the flagship's stage-2 shape and
+    K6 at the hybrid's ViT-B shape, bf16 (``scripts/torch_dispatch_ab.py``,
+    which also compares two checkouts)."""
+    from scripts.torch_dispatch_ab import CALLS, ROUNDS, dispatch_us
+
+    us = dispatch_us(torch)
+    record["dispatch"] = {"calls": CALLS, "rounds": ROUNDS, **us}
+    log(f"dispatch, host µs a bare call (op / launch alone): K1 {us['k1_call_us']:.2f} / "
+        f"{us['k1_launch_us']:.2f}, K6 {us['k6_call_us']:.2f} / {us['k6_launch_us']:.2f} ({card})")
+
+
+def phase_deploy(torch, card, tmp, tree):
+    """Phase 9 on the card; returns the launches of its paths (each path's
+    counts set to 0 just before it and read just after)."""
+    counters = deploy_counters()
+    record = RECORD.setdefault("deploy", {})
+    with phase("export and run_exported"):
+        launches, pth, program = deploy_exports(torch, card, tmp, counters, record)
+    with phase("eval_others"):
+        launches.update(deploy_eval_others(torch, card, tree, pth, program, counters, record))
+    torch.cuda.empty_cache()
+    with phase("datasets_analysis"):
+        deploy_analysis(tree, record)
+    with phase("midas v2.1"):
+        deploy_midas(torch, card, record)
+    torch.cuda.empty_cache()
+    with phase("K2 determinism and the ops' dispatch"):
+        deploy_k2_determinism(torch, card, record)
+        deploy_dispatch(torch, card, record)
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3642,11 +4102,20 @@ def main():
     with phase("bench, eval_timing, eval_patchwise"):
         phase_clis(torch, card)
     torch.cuda.empty_cache()
-    path_launches.update(phase_train_eval_clis(torch, card))
+    with tempfile.TemporaryDirectory(prefix="clis_") as tmp_name:
+        tmp = Path(tmp_name)
+        tree = write_cli_tree(tmp)
+        path_launches.update(phase_train_eval_clis(torch, card, tmp, tree))
+        torch.cuda.empty_cache()
+        path_launches.update(phase_deploy(torch, card, tmp, tree))
     torch.cuda.empty_cache()
     for path, name in (("train_cli_swin", "window_attention"),
                        ("train_cli_hybrid", "global_attention"),
-                       ("train_cli_hybrid", "global_attention_backward")):
+                       ("train_cli_hybrid", "global_attention_backward"),
+                       ("deploy_flagship", "window_attention"),
+                       ("deploy_flagship_points", "window_attention"),
+                       ("deploy_hybrid", "global_attention"),
+                       ("eval_others_pt2", "window_attention")):
         if path_launches[path][name] < 1:
             fail(f"{name} was launched no time on {path}")
     del served_problem

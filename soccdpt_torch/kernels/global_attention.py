@@ -62,6 +62,16 @@ so each thread loads the elements its sums hold, a tile ahead. Without a
 bias (plain ViT) the products bound both. The designs are described in
 the CUDA sources.
 
+K6's forward is two custom ops (``torch.library``):
+``soccdpt::global_attention`` gives the output and
+``soccdpt::global_attention_with_lse`` the output and each row's
+log-sum-exp. Their CUDA implementations launch the kernel, their CPU
+implementations are the plain versions, and fake implementations give the
+outputs' shapes and dtypes, so ``torch.export`` records a call as one node
+and an exported program launches K6 when it runs on the card. A device
+with no implementation raises. K7 is launched by the ``autograd.Function``
+as before.
+
 ``global_attention`` launches the kernels for CUDA tensors and runs the
 plain versions for CPU tensors; ``global_attention.launches`` counts K6's
 launches and ``global_attention_backward.launches`` K7's.
@@ -268,17 +278,23 @@ def _geometry(*tensors: torch.Tensor):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
+def _as_read(q, k, v, bias):
+    """q, k, v and the bias as K6 reads them: bf16 q, k, v where TMA can
+    read them (``_as_tma``), f32 ones contiguous and aligned, the bias
+    contiguous in its own dtype (the kernel widens it on chip)."""
+    as_read = _as_tma if q.dtype == torch.bfloat16 else _aligned
+    return as_read(q), as_read(k), as_read(v), None if bias is None else bias.contiguous()
+
+
 def _launch(q, k, v, bias, scale, want_lse=False):
     """K6 on CUDA tensors: ``(out, lse, (q, k, v, bias) as the kernel read
     them)``; ``lse`` (B, H, T) f32 only when ``want_lse``. bf16 runs the
     tensor-core route, f32 the CUDA cores."""
     B, H, T, d = q.shape
-    if bias is not None:
-        bias = bias.contiguous()  # in its own dtype: the kernel widens on chip
+    q, k, v, bias = _as_read(q, k, v, bias)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if want_lse else None
     lib = _build.load("global_attention")
     if q.dtype == torch.bfloat16:
-        q, k, v = _as_tma(q), _as_tma(k), _as_tma(v)
         out = torch.empty((B, H, T, d), dtype=q.dtype, device=q.device)
         plan_attention(B, H, T, d)  # raises on what the route cannot take
         fn = lib.soccdpt_global_attention_bf16
@@ -290,7 +306,6 @@ def _launch(q, k, v, bias, scale, want_lse=False):
                 out.data_ptr(), _ptr(lse), B, H, T, d, _bias_kind(bias), float(scale),
                 _stream(q))
     else:
-        q, k, v = _aligned(q), _aligned(k), _aligned(v)
         out = torch.empty_like(q)
         fn = lib.soccdpt_global_attention_f32
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
@@ -338,17 +353,67 @@ def _launch_backward(q, k, v, bias, out, lse, g, scale, want_dbias, img=None):
     return dq, dk, dv, dbias
 
 
+def _lse_plain(q, k, bias, scale):
+    s = torch.einsum("bhnd,bhmd->bhnm", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.float()[None]
+    return torch.logsumexp(s, dim=-1)
+
+
+def _global_attention_cuda(q, k, v, bias, scale):
+    return _launch(q, k, v, bias, scale)[0]
+
+
+def _global_attention_with_lse_cuda(q, k, v, bias, scale):
+    out, lse, _ = _launch(q, k, v, bias, scale, want_lse=True)
+    return out, lse
+
+
+def _global_attention_with_lse_cpu(q, k, v, bias, scale):
+    return global_attention_plain(q, k, v, bias, scale), _lse_plain(q, k, bias, scale)
+
+
+# The custom ops, registered through ``torch.library.Library`` (cheaper to
+# call than ``torch.library.custom_op``: kernels/window_attention.py)
+_LIB = torch.library.Library("soccdpt", "FRAGMENT")
+_LIB.define("global_attention(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale) -> Tensor")
+_LIB.define(
+    "global_attention_with_lse(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale)"
+    " -> (Tensor, Tensor)"
+)
+_LIB.impl("global_attention", _global_attention_cuda, "CUDA")
+_LIB.impl("global_attention", global_attention_plain, "CPU")
+_LIB.impl("global_attention_with_lse", _global_attention_with_lse_cuda, "CUDA")
+_LIB.impl("global_attention_with_lse", _global_attention_with_lse_cpu, "CPU")
+
+
+@torch.library.register_fake("soccdpt::global_attention", lib=_LIB)
+def _global_attention_fake(q, k, v, bias, scale):
+    return v.new_empty(q.shape)
+
+
+@torch.library.register_fake("soccdpt::global_attention_with_lse", lib=_LIB)
+def _global_attention_with_lse_fake(q, k, v, bias, scale):
+    return v.new_empty(q.shape), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+_global_attention_op = torch.ops.soccdpt.global_attention.default
+_global_attention_with_lse_op = torch.ops.soccdpt.global_attention_with_lse.default
+
+
 class _GlobalAttention(torch.autograd.Function):
-    """Forward K6, backward K7 on CUDA tensors; the plain versions on CPU
-    tensors."""
+    """Forward K6 (the custom op), backward K7 on CUDA tensors; the plain
+    versions on CPU tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
         ctx.scale = scale
         if q.device.type == "cuda":
-            out, lse, (q, k, v, bias) = _launch(q, k, v, bias, scale, want_lse=True)
+            # saved as the kernel read them, so the backward reads the same
+            q, k, v, bias = _as_read(q, k, v, bias)
+            out, lse = _global_attention_with_lse_op(q, k, v, bias, scale)
         else:
-            out, lse = global_attention_plain(q, k, v, bias, scale), None
+            out, lse = _global_attention_op(q, k, v, bias, scale), None
         ctx.save_for_backward(q, k, v, bias, out, lse)
         return out
 
@@ -371,15 +436,9 @@ def global_attention_with_lse(q, k, v, bias=None, scale=1.0):
     its scores, (B, H, T) f32, which the backward starts from. One K6
     launch on CUDA tensors."""
     check_args(q, k, v, bias)
-    if q.device.type == "cuda":
-        out, lse, _ = _launch(q, k, v, bias, scale, want_lse=True)
-        return out, lse
-    if q.device.type != "cpu":
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"global attention runs on cuda or cpu, not {q.device}")
-    s = torch.einsum("bhnd,bhmd->bhnm", q.float(), k.float()) * scale
-    if bias is not None:
-        s = s + bias.float()[None]
-    return global_attention_plain(q, k, v, bias, scale), torch.logsumexp(s, dim=-1)
+    return _global_attention_with_lse_op(q, k, v, bias, scale)
 
 
 def global_attention_backward(
@@ -396,9 +455,8 @@ def global_attention_backward(
         if out is None or lse is None:
             out, lse, (q, k, v, bias) = _launch(q, k, v, bias, scale, want_lse=True)
         else:
-            as_read = _as_tma if q.dtype == torch.bfloat16 else _aligned
-            q, k, v, out = as_read(q), as_read(k), as_read(v), _aligned(out)
-            bias = None if bias is None else bias.contiguous()
+            q, k, v, bias = _as_read(q, k, v, bias)
+            out = _aligned(out)
         return _launch_backward(q, k, v, bias, out, lse.contiguous(), g, scale, want_dbias)
     if q.device.type != "cpu":
         raise ValueError(f"global attention runs on cuda or cpu, not {q.device}")
@@ -424,9 +482,7 @@ def global_attention(
         t is not None and t.requires_grad for t in (q, k, v, bias)
     ):
         return _GlobalAttention.apply(q, k, v, bias, scale)
-    if q.device.type == "cuda":
-        return _launch(q, k, v, bias, scale)[0]
-    return global_attention_plain(q, k, v, bias, scale)
+    return _global_attention_op(q, k, v, bias, scale)
 
 
 global_attention.launches = 0

@@ -33,9 +33,14 @@ mask) for about 1.9 GFLOP, so the bytes dominate (about 13 us at
 3.35 TB/s against 2 us of bf16 tensor-core time); a single launch moves
 0.2-2.4 us of bytes, so its floor is the launch itself.
 
-``window_attention`` launches the kernel for CUDA tensors and runs
-``window_attention_plain`` for CPU tensors; ``window_attention.launches``
-counts kernel launches (forward only: the backward launches none).
+The forward is the custom op ``soccdpt::window_attention``
+(``torch.library``): its CUDA implementation launches the kernel, its CPU
+implementation is ``window_attention_plain``, and a fake implementation
+gives the output's shape and dtype, so ``torch.export`` records the call
+as one node and an exported program launches the kernel when it runs on
+the card. A device with no implementation raises. ``window_attention``
+calls the op; ``window_attention.launches`` counts kernel launches
+(forward only: the backward launches none).
 
 Gradient. The JAX package's backward of this kernel is no Pallas kernel:
 ``_pwa_bwd`` re-derives the attention matrix through ``xla_reference``
@@ -252,10 +257,28 @@ def _launch(q, k, v, scale, bias, mask):
     return out
 
 
+# The custom op, registered through ``torch.library.Library``: cheaper to
+# call than through ``torch.library.custom_op``, whose Python wrappers run
+# on every call (PERF.md §6)
+_LIB = torch.library.Library("soccdpt", "FRAGMENT")
+_LIB.define(
+    "window_attention(Tensor q, Tensor k, Tensor v, Tensor scale, Tensor bias, Tensor? mask)"
+    " -> Tensor"
+)
+_LIB.impl("window_attention", _launch, "CUDA")
+_LIB.impl("window_attention", window_attention_plain, "CPU")
+
+
+@torch.library.register_fake("soccdpt::window_attention", lib=_LIB)
+def _window_attention_fake(q, k, v, scale, bias, mask):
+    return q.new_empty(q.shape)
+
+
+_window_attention_op = torch.ops.soccdpt.window_attention.default
+
+
 def _forward(q, k, v, scale, bias, mask):
-    if q.device.type == "cuda":
-        return _launch(q, k, v, scale, bias, mask)
-    return window_attention_plain(q, k, v, scale, bias, mask)
+    return _window_attention_op(q, k, v, scale, bias, mask)
 
 
 class _WindowAttention(torch.autograd.Function):

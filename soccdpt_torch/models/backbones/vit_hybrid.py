@@ -66,9 +66,11 @@ def _pad_same(x_nchw: torch.Tensor, kernel: int, stride: int, value: float = 0.0
 def standardized_weight(mod: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     """``mod.weight`` standardized per output channel in f32, in ``dtype``.
     Without gradients the result is cached on the module, keyed by the
-    weight's storage and version counter."""
+    weight's storage and version counter; while ``torch.export`` traces it
+    is computed in the program."""
     w = mod.weight
-    if not torch.is_grad_enabled():
+    cached = not torch.is_grad_enabled() and not torch.compiler.is_compiling()
+    if cached:
         key = (w.data_ptr(), w._version, dtype)
         hit = mod.__dict__.get("_ws_cache")
         if hit is not None and hit[0] == key:
@@ -76,7 +78,7 @@ def standardized_weight(mod: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     wf = w.float()
     var, mean = torch.var_mean(wf, dim=(1, 2, 3), unbiased=False, keepdim=True)
     out = ((wf - mean) * torch.rsqrt(var + WS_EPS)).to(dtype)
-    if not torch.is_grad_enabled():
+    if cached:
         mod.__dict__["_ws_cache"] = (key, out.detach())
     return out
 

@@ -15,6 +15,12 @@ the storage, so a stale bias is never served. A stale cache is
 recomputed inline until the next :func:`build_inference_cache`. With
 gradients enabled the bias is always computed inline, so training sees
 gradients through it.
+
+While ``torch.export`` traces (``torch.compiler.is_compiling()``), the
+parameters are fake tensors with no storage to key on: a bound cache is
+read as it is, and the exported program carries it as a buffer, the
+folded bias the served path reads (``cli/export.py`` binds it just
+before tracing).
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ def _key(mod: nn.Module) -> Tuple:
 def cached_bias(mod: nn.Module) -> torch.Tensor:
     """``mod.compute_bias()``, or its cache when the cache is current."""
     if not torch.is_grad_enabled() and mod.bias_cache is not None:
-        if mod._bias_key == _key(mod):
+        if torch.compiler.is_compiling() or mod._bias_key == _key(mod):
             return mod.bias_cache
     return mod.compute_bias()
 

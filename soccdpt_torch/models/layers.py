@@ -24,11 +24,13 @@ import torch.nn.functional as F
 def cast_param(mod: nn.Module, name: str, dtype: torch.dtype):
     """``getattr(mod, name)`` in ``dtype``. Without gradients the cast is
     cached on the module, keyed by the parameter's storage and version
-    counter, so a weight load or a move invalidates it."""
+    counter, so a weight load or a move invalidates it. While
+    ``torch.export`` traces, the cast is a node of the program, as in the
+    JAX package's exported forward."""
     p = getattr(mod, name)
     if p is None or p.dtype == dtype:
         return p
-    if torch.is_grad_enabled():
+    if torch.is_grad_enabled() or torch.compiler.is_compiling():
         return p.to(dtype)
     cache = mod.__dict__.setdefault("_cast_cache", {})
     key = (p.data_ptr(), p._version, dtype)

@@ -36,11 +36,19 @@ def rotation_matrix(
 
 
 @functools.lru_cache(maxsize=64)
-def _const(values: Tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """A small constant tensor, made once per device: a fresh host-to-device
-    copy on every request would stall the host behind the card."""
+def _cached_const(values: Tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     with torch.inference_mode(False):
         return torch.tensor(values, dtype=dtype, device=device)
+
+
+def _const(values: Tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """A small constant tensor, made once per device: a fresh host-to-device
+    copy on every request would stall the host behind the card. While
+    ``torch.export`` traces it is made afresh, a constant of the program,
+    and never cached: the cache would keep a fake tensor."""
+    if torch.compiler.is_compiling():
+        return torch.tensor(values, dtype=dtype, device=device)
+    return _cached_const(values, device, dtype)
 
 
 def rotate_points(

@@ -45,7 +45,12 @@ Tolerances, with their reasons:
   cores (``tile`` 8 or 4) and bf16 on the tensor cores (planned launches,
   no ``tile``); at C = 256 the bf16 cases take atol as 2e-2 of the
   output's largest value, as chip_smoke.py does: the rounding step of the
-  intermediate carries into outputs where the conv and the residual cancel.
+  intermediate carries into outputs where the conv and the residual cancel;
+* the ``soccdpt::`` custom ops (K1, K6 as an exported program calls them):
+  ``torch.library.opcheck`` of their CUDA implementations, which runs each
+  twice and asks for equal outputs; the flagship exported on the card and
+  loaded: bit for bit its eager model's outputs, K1 launched 12 times a
+  forward.
 """
 import numpy as np
 import pytest
@@ -815,3 +820,62 @@ def test_forward_only_decoder_kernels_refuse_a_gradient(card):
         fused_rcu_tail(s, w1, b1, w2, b2, wo, bo)
     with torch.no_grad():
         assert fused_rcu(s, w1, b1, w2, b2).shape == s.shape
+
+
+# --- K1 and K6 as custom ops, and an exported program on the card --------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nW", [None, 4])
+def test_window_attention_op_passes_opcheck_on_the_card(card, dtype, nW):
+    from torch.library import opcheck
+
+    args = _attn_inputs(8, 2, 16, 16, nW, dtype, card)
+    opcheck(torch.ops.soccdpt.window_attention.default, args)
+    before = window_attention.launches
+    out = torch.ops.soccdpt.window_attention(*args)
+    assert window_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), window_attention_plain(*args).float(),
+                               atol=2e-5 if dtype == torch.float32 else 5e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("biased", [False, True])
+def test_global_attention_ops_pass_opcheck_on_the_card(card, dtype, biased):
+    from torch.library import opcheck
+
+    g = torch.Generator(device=card).manual_seed(0)
+    q, k, v = (torch.randn(2, 4, 200, 64, device=card, generator=g).to(dtype) for _ in range(3))
+    bias = torch.randn(4, 200, 200, device=card, generator=g) if biased else None
+    args = (q, k, v, bias, 0.125)
+    opcheck(torch.ops.soccdpt.global_attention.default, args)
+    opcheck(torch.ops.soccdpt.global_attention_with_lse.default, args)
+    before = global_attention.launches
+    out, lse = torch.ops.soccdpt.global_attention_with_lse(*args)
+    assert global_attention.launches == before + 1 and lse.shape == (2, 4, 200)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), global_attention_plain(*args).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_exported_flagship_launches_k1_and_equals_eager(card, tmp_path):
+    from soccdpt_torch.cli.export import export_model
+    from soccdpt_torch.cli.run_exported import load_program
+    from soccdpt_torch.core.config import ModelConfig
+    from soccdpt_torch.models.bias_cache import build_inference_cache
+    from soccdpt_torch.models.soccdpt import build_model
+
+    path = export_model("dpt_swin2_tiny_256", 3, str(tmp_path / "flagship.pt2"))
+    program = load_program(path, card)
+    model = build_inference_cache(build_model(
+        ModelConfig(model_type="dpt_swin2_tiny_256", compute_dtype="bfloat16")).eval())
+    for batch in (1, 2):
+        g = torch.Generator(device=card).manual_seed(batch)
+        x = torch.randn(batch, 3, 256, 256, device=card, generator=g)
+        with torch.no_grad():
+            before = window_attention.launches
+            got = program(x)
+            launched = window_attention.launches - before
+            want = model(x, return_raw=True)
+        assert launched == 12
+        assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -108,17 +108,20 @@ def _tree(variables):
     return jax.tree_util.tree_map(np.asarray, variables)
 
 
-def check_backbone(name, x, train, seed=0, tweak=None, port_kw=(), **overrides):
+def check_backbone(name, x, train, seed=0, tweak=None, port_kw=(), makers=None, **overrides):
     """The port's backbone ``name`` against the JAX one on ``x`` (NHWC),
     under one perturbed weight set (``tweak`` edits it further;
     ``overrides`` replace fields of both factories, such as ``cfg``;
-    ``port_kw`` fields of the port's alone, such as ``input_size``). In
-    eval mode: the features. In training mode: the features, the running
-    statistics after the forward, and every parameter's gradient of a
-    weighted sum of the features."""
-    jfactory, _ = jax_make_backbone(name)
+    ``port_kw`` fields of the port's alone, such as ``input_size``;
+    ``makers`` the (JAX, port) functions that make the factories, the two
+    registries' ``make_backbone`` unless given). In eval mode: the
+    features. In training mode: the features, the running statistics after
+    the forward, and every parameter's gradient of a weighted sum of the
+    features."""
+    jax_make, port_make = makers or (jax_make_backbone, make_backbone)
+    jfactory, _ = jax_make(name)
     jbb = jfactory(**overrides)
-    factory, chans = make_backbone(name)
+    factory, chans = port_make(name)
     variables = perturbed_variables(jbb.init(jax.random.PRNGKey(seed), jnp.asarray(x)), seed)
     if tweak is not None:
         variables = tweak(variables)
