@@ -128,7 +128,19 @@ Phases, each of which fails the run on any error:
    BatchNorm statistics, bf16 walls and device time at batch 1 and 2;
    identical grid requests of the flagship compared bit for bit (K2's
    atomics); a bare call's host µs through the custom ops against the
-   launch alone.
+   launch alone;
+10. data and tensor parallelism (``soccdpt_torch/parallel/``): (a) the
+   flagship V3 at batch 3 in bf16 takes a step through the mesh trainer at
+   world size 1 over NCCL (``init_distributed`` from a torchrun
+   environment set for the call) and through the trainer with no process
+   group, from the same weights and batch: the loss to 1e-5 relative, each
+   leaf's update, both moments and every BatchNorm statistic to the
+   training phase's bounds, K1 twelve times a step; the step walls and the
+   NCCL kernels' device time; (b) two ranks spawned on the one card over
+   gloo, f32, TF32 off, global batch 2, one step on a (2, 1) and one on a
+   (1, 2) mesh: each rank's loss against one process's step on that batch
+   to 2e-4 relative; the moments' bytes per rank at tp 2 against tp 1 and
+   the leaves sharded.
 
 It prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -3814,6 +3826,325 @@ def phase_deploy(torch, card, tmp, tree):
 
 
 # ---------------------------------------------------------------------------
+# Data and tensor parallelism: the mesh trainer on the card
+# ---------------------------------------------------------------------------
+
+PAR_MODEL = "dpt_swin2_tiny_256"
+PAR_BATCH_NCCL = 3  # (a): the training phase's batch, bf16 (``amp``)
+PAR_BATCH_GLOO = 2  # (b): the global batch of the two ranks, f32, TF32 off
+PAR_GT_HW = (1080, 1920)
+PAR_LOSS_RTOL_NCCL = 1e-5  # (a): one process either way, the same kernels
+# (b): the bound of the JAX package's flagship steps on its 8 x 1 and 4 x 2
+# meshes against one device (tests/test_multichip_flagship.py)
+PAR_LOSS_RTOL_GLOO = 2e-4
+PAR_TIMED_STEPS = 3
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def parallel_base(batch):
+    return dict(batch_size=batch, encoder_percentage=TRAINED["swin"]["encoder_percentage"],
+                patchwise_percentage=1.0, learning_rate=TRAIN_LR)
+
+
+def no_dropout(model):
+    for mod in model.modules():
+        if hasattr(mod, "dropout_rate"):
+            mod.dropout_rate = 0.0
+        if hasattr(mod, "drop_path_rates"):
+            mod.drop_path_rates = [0.0] * len(mod.drop_path_rates)
+
+
+def moment_bytes(state):
+    return sum(m.numel() * m.element_size() for m in (*state.mu.values(), *state.nu.values()))
+
+
+def train_snapshot(torch, trainer, state):
+    """Every leaf by flax path, both Adam moments (full: ``state`` is
+    gathered) and every BatchNorm statistic, detached."""
+    stats = {f"{n}.{stat}": getattr(m, stat).detach() for n, m in trainer.model.named_modules()
+             if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+             for stat in ("running_mean", "running_var")}
+    return {"leaf": {k: p.detach() for k, p in trainer.params},
+            "mu": dict(state.mu), "nu": dict(state.nu), "stats": stats}
+
+
+def shares_of_bound(torch, got, want, twins):
+    """For each kind of :func:`train_snapshot`, the worst leaf's
+    ``|got - want| / bound`` with its name: the training phase's bounds
+    (``TRAIN_GRAD_REL_LIMIT`` of the leaf's norm plus
+    ``TRAIN_GRAD_ATOL_OF_MAX`` of the largest, ``TRAIN_STATS_REL_LIMIT``
+    for the statistics) plus ``TRAIN_SPREAD_FACTOR`` times the card's own
+    spread, the largest ``|twin - want|`` over ``twins``, further runs of
+    the same step (atomic adds in the backward's kernels sum in any order).
+    Also the median of that spread relative to the leaves' norms. (Adam's first update is about the
+    learning rate times the gradient's sign, so a gradient that rounding
+    moves across 0 flips it: the moments carry the gradients'
+    comparison.)"""
+    shares, spreads = {}, {}
+    for kind in ("leaf", "mu", "nu", "stats"):
+        limit = TRAIN_STATS_REL_LIMIT if kind == "stats" else TRAIN_GRAD_REL_LIMIT
+        floor = 0.0 if kind == "stats" else TRAIN_GRAD_ATOL_OF_MAX * max(
+            float(w.norm()) for w in want[kind].values())
+        if set(got[kind]) != set(want[kind]):
+            fail(f"{kind}: the leaves differ: {sorted(set(got[kind]) ^ set(want[kind]))[:5]}")
+        rows = []
+        for k, w in want[kind].items():
+            spread = max(float((twin[kind][k] - w).norm()) for twin in twins)
+            bound = limit * float(w.norm()) + floor + TRAIN_SPREAD_FACTOR * spread
+            share = float((got[kind][k] - w).norm()) / bound if bound > 0 else (
+                0.0 if torch.equal(got[kind][k], w) else float("inf"))
+            rows.append((share, k, spread / max(float(w.norm()), 1e-30)))
+        # a NaN takes the lead and fails
+        shares[kind] = max(rows, key=lambda r: r[0] if r[0] == r[0] else float("inf"))[:2]
+        spreads[kind] = float(np.median([r[2] for r in rows]))
+    return shares, spreads
+
+
+def _parallel_rank(rank, world, store, out):
+    """One of the two ranks of part (b): gloo on a FileStore, the card
+    shared, one step of the flagship on a (2, 1) and then a (1, 2) mesh."""
+    sys.path.insert(0, str(HERE))
+    import torch
+    import torch.distributed as dist
+
+    from soccdpt_torch.core.config import ModelConfig, TrainConfig
+    from soccdpt_torch.data.synthetic import make_batch
+    from soccdpt_torch.kernels import window_attention as wa
+    from soccdpt_torch.parallel import mesh as mesh_lib
+    from soccdpt_torch.train.trainer import Trainer
+
+    set_tf32(torch, False)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        dev = mesh_lib.init_distributed("cuda:0").device
+        mcfg = ModelConfig(model_type=PAR_MODEL, version=3)
+        batch = make_batch(0, PAR_BATCH_GLOO, PAR_GT_HW, mcfg.net_size[::-1], mcfg.num_classes)
+        result, reference = {}, None
+        for shape in ((2, 1), (1, 2)):
+            mesh = mesh_lib.make_mesh(shape, (mesh_lib.DATA_AXIS, mesh_lib.MODEL_AXIS))
+            trainer = Trainer(mcfg, TrainConfig(**parallel_base(PAR_BATCH_GLOO)), device=dev,
+                              mesh=mesh)
+            state = trainer.init_state(seed=0)
+            no_dropout(trainer.model)
+            wa.window_attention.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            launches = wa.window_attention.launches
+            # after the gradients' all-reduce, the sharded update and its
+            # gather: every leaf, the gathered moments, every statistic
+            got = train_snapshot(torch, trainer, trainer.gather_state(state))
+            if reference is None:
+                reference = torch.load(f"{out}/single.pt", map_location=dev)
+            shares, _ = shares_of_bound(torch, got, reference["want"], [reference["twin"]])
+            result[f"{shape[0]}x{shape[1]}"] = {
+                "loss": float(metrics["loss"]), "step_ms": step_ms,
+                "moment_bytes": moment_bytes(state), "sharded_leaves": len(trainer.shards),
+                "window_attention_launches": launches,
+                "rows": len(trainer.to_device_batch(batch)["image"]),
+                "worst_share_of_bound": shares}
+            del trainer, state, got
+            torch.cuda.empty_cache()
+        torch.save(result, f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(torch, card):
+    """(a) The mesh trainer at world size 1 over NCCL against the trainer
+    with no process group, flagship V3, batch 3, bf16; (b) two ranks that
+    share the card over gloo, f32, global batch 2, on a (2, 1) and a (1, 2)
+    mesh, against one process's step on that batch."""
+    import os
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from soccdpt_torch.core.config import ModelConfig, TrainConfig
+    from soccdpt_torch.data.synthetic import make_batch
+    from soccdpt_torch.kernels import window_attention as wa
+    from soccdpt_torch.parallel import mesh as mesh_lib
+    from soccdpt_torch.train.trainer import Trainer
+    from soccdpt_torch.weights import named_flax_params
+
+    record = RECORD.setdefault("parallel", {"model_type": PAR_MODEL})
+    mcfg = ModelConfig(model_type=PAR_MODEL, version=3)
+    net_hw = mcfg.net_size[::-1]
+
+    # --- (a) world 1 over NCCL -------------------------------------------------
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port())}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    launches = 0
+    try:
+        info = mesh_lib.init_distributed()
+        if not (dist.is_initialized() and dist.get_backend() == "nccl"
+                and info.device == torch.device("cuda", 0)):
+            fail(f"parallel: init_distributed gave {info}, backend "
+                 f"{dist.get_backend() if dist.is_initialized() else None}")
+        batch = make_batch(0, PAR_BATCH_NCCL, PAR_GT_HW, net_hw, mcfg.num_classes)
+        tcfg = TrainConfig(amp=True, **parallel_base(PAR_BATCH_NCCL))
+        plain = Trainer(mcfg, tcfg, mesh=mesh_lib.Mesh({"data": 1}))
+        # two more plain trainers: the card's own spread between runs of one
+        # step (atomic adds in the backward's kernels sum in any order). A
+        # leaf of three elements (a block's logit_scale) read 0.91 of its
+        # bound with the spread of one pair, so the bound takes the larger
+        # of two.
+        again = Trainer(mcfg, tcfg, mesh=mesh_lib.Mesh({"data": 1}))
+        again2 = Trainer(mcfg, tcfg, mesh=mesh_lib.Mesh({"data": 1}))
+        meshed = Trainer(mcfg, tcfg)
+        if not (meshed.mesh.distributed and dict(meshed.mesh.shape) == {"data": 1}):
+            fail(f"parallel: the default mesh at world 1 is {meshed.mesh}")
+        runs = {"plain": plain, "again": again, "again2": again2, "mesh": meshed}
+        states = {name: t.init_state(seed=0) for name, t in runs.items()}
+        out, walls = {}, {"plain": [], "mesh": []}
+        for name, trainer in runs.items():
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            wa.window_attention.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[name], metrics = trainer.train_step(states[name], batch, gen)
+            torch.cuda.synchronize()
+            walls.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+            out[name] = {"loss": float(metrics["loss"]),
+                         "launches": wa.window_attention.launches}
+        launches = out["mesh"]["launches"]
+        if any(o["launches"] != 12 for o in out.values()):
+            fail(f"parallel: K1 ran {[o['launches'] for o in out.values()]} times in a step "
+                 "(plain, again, again2, mesh), expected 12")
+        loss_rel = abs(out["mesh"]["loss"] - out["plain"]["loss"]) / abs(out["plain"]["loss"])
+        # every leaf after the step, both moments, every BatchNorm statistic,
+        # to the training phase's bounds and the card's own spread
+        got, want, *twins = (train_snapshot(torch, runs[n], states[n])
+                             for n in ("mesh", "plain", "again", "again2"))
+        shares, spreads = shares_of_bound(torch, got, want, twins)
+        worst_stat = shares.pop("stats")
+        log(f"parallel (a) world 1 over NCCL, flagship V3 batch {PAR_BATCH_NCCL} bf16: loss mesh "
+            f"{out['mesh']['loss']:.6f} vs plain {out['plain']['loss']:.6f} (rel {loss_rel:.3g}, "
+            f"limit {PAR_LOSS_RTOL_NCCL}; two more plain runs {out['again']['loss']:.6f}, "
+            f"{out['again2']['loss']:.6f}); worst "
+            "share of the bound: "
+            + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in shares.items())
+            + f", BatchNorm statistics {worst_stat[0]:.3g} ({worst_stat[1]}); the card's own "
+            "spread over the plain runs, median of the leaves' norms: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in spreads.items())
+            + f"; K1 {launches} launches a step")
+        if not (loss_rel <= PAR_LOSS_RTOL_NCCL and all(v[0] <= 1.0 for v in shares.values())
+                and worst_stat[0] <= 1.0):
+            fail("parallel (a): the mesh trainer's step left the plain trainer's")
+        for _ in range(PAR_TIMED_STEPS):
+            for name in ("plain", "mesh"):
+                trainer = runs[name]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                states[name], _ = trainer.train_step(states[name], batch)
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            meshed.train_step(states["mesh"], batch)
+            torch.cuda.synchronize()
+        rows = device_events(prof)
+        nccl = [(ev.key, ev.device_time_total, ev.count) for ev in rows
+                if "nccl" in ev.key.lower()]
+        device_ms = sum(ev.device_time_total for ev in rows) / 1e3
+        nccl_ms = sum(us for _, us, _ in nccl) / 1e3
+        record["world1_nccl"] = {
+            "batch": PAR_BATCH_NCCL, "loss_mesh": out["mesh"]["loss"],
+            "loss_plain": out["plain"]["loss"], "loss_rel_err": loss_rel,
+            "loss_plain_again": [out["again"]["loss"], out["again2"]["loss"]],
+            "worst_share_of_bound": {k: v[0] for k, v in shares.items()},
+            "worst_stat_share_of_bound": worst_stat[0], "median_plain_spread": spreads,
+            "step_ms_plain": walls["plain"], "step_ms_mesh": walls["mesh"],
+            "median_step_ms_plain": float(np.median(walls["plain"][1:])),
+            "median_step_ms_mesh": float(np.median(walls["mesh"][1:])),
+            "device_ms_mesh_step": device_ms, "nccl_device_ms": nccl_ms,
+            "nccl_kernels": [{"name": k[:100], "device_us": us, "calls": c} for k, us, c in nccl],
+            "window_attention_launches_per_step": launches}
+        log(f"parallel (a) step wall, median of {PAR_TIMED_STEPS} after the first: plain "
+            f"{record['world1_nccl']['median_step_ms_plain']:.2f} ms, mesh "
+            f"{record['world1_nccl']['median_step_ms_mesh']:.2f} ms (first steps "
+            f"{walls['plain'][0]:.1f} / {walls['mesh'][0]:.1f}); one mesh step's device time "
+            f"{device_ms:.3f} ms, of which NCCL kernels {nccl_ms:.4f} ms in "
+            f"{sum(c for *_, c in nccl)} launches {[k[:60] for k, _, _ in nccl]} ({card})")
+        del plain, again, again2, meshed, runs, states, got, want, twins
+        torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # --- (b) two ranks on the one card over gloo, f32 ----------------------------
+    set_tf32(torch, False)
+    batch = make_batch(0, PAR_BATCH_GLOO, PAR_GT_HW, net_hw, mcfg.num_classes)
+    with tempfile.TemporaryDirectory(prefix="parallel_") as tmp:
+        # the single process's step, twice: the second run is the card's own
+        # spread, which the bounds add as in (a)
+        reference = {}
+        for run in ("want", "twin"):
+            single = Trainer(mcfg, TrainConfig(**parallel_base(PAR_BATCH_GLOO)))
+            state = single.init_state(seed=0)
+            no_dropout(single.model)
+            state, metrics = single.train_step(state, batch)
+            reference[run] = {kind: {k: v.cpu() for k, v in leaves.items()} for kind, leaves
+                              in train_snapshot(torch, single, state).items()}
+            if run == "want":
+                loss_single, bytes_single = float(metrics["loss"]), moment_bytes(state)
+            del single, state
+        torch.save(reference, f"{tmp}/single.pt")
+        del reference
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.start_processes(_parallel_rank, args=(2, f"{tmp}/store", tmp), nprocs=2,
+                           start_method="spawn")
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(2)]
+    record["two_ranks_gloo"] = {"batch": PAR_BATCH_GLOO, "loss_single": loss_single,
+                                "moment_bytes_single": bytes_single, "ranks": ranks,
+                                "seconds": spawn_s}
+    for shape in ("2x1", "1x2"):
+        for r, rank in enumerate(ranks):
+            got = rank[shape]
+            rel = abs(got["loss"] - loss_single) / abs(loss_single)
+            log(f"parallel (b) {shape} rank {r}: loss {got['loss']:.6f} vs one process "
+                f"{loss_single:.6f} (rel {rel:.3g}, limit {PAR_LOSS_RTOL_GLOO}); {got['rows']} "
+                f"rows; moments {got['moment_bytes'] / 1e6:.2f} MB (one process "
+                f"{bytes_single / 1e6:.2f} MB); {got['sharded_leaves']} leaves sharded; step "
+                f"{got['step_ms']:.1f} ms; K1 {got['window_attention_launches']} launches")
+            log(f"parallel (b) {shape} rank {r}: after the step, worst share of the bound "
+                "against one process: " + ", ".join(
+                    f"{k} {v[0]:.3g} ({v[1]})" for k, v in got["worst_share_of_bound"].items()))
+            if not rel <= PAR_LOSS_RTOL_GLOO:
+                fail(f"parallel (b) {shape}: rank {r}'s loss left the single process's")
+            if not all(v[0] <= 1.0 for v in got["worst_share_of_bound"].values()):
+                fail(f"parallel (b) {shape}: rank {r}'s weights, moments or statistics after "
+                     "the step left the single process's")
+            if got["window_attention_launches"] != 12:
+                fail(f"parallel (b) {shape}: K1 ran {got['window_attention_launches']} times")
+    if not (ranks[0]["1x2"]["sharded_leaves"] >= 20 and ranks[0]["2x1"]["sharded_leaves"] == 0
+            and ranks[0]["1x2"]["moment_bytes"] < ranks[0]["2x1"]["moment_bytes"]):
+        fail("parallel (b): tp 2 did not shard the moments")
+    log(f"parallel (b) {spawn_s:.1f} s for both ranks' two meshes, start-up included ({card})")
+    return {"window_attention": launches}
+
+
+# ---------------------------------------------------------------------------
 # Reference-layout torch checkpoints: the inverse of core/torch_import.py
 # ---------------------------------------------------------------------------
 
@@ -4109,13 +4440,17 @@ def main():
         torch.cuda.empty_cache()
         path_launches.update(phase_deploy(torch, card, tmp, tree))
     torch.cuda.empty_cache()
+    with phase("data and tensor parallelism dpt_swin2_tiny_256"):
+        path_launches["parallel_world1"] = phase_parallel(torch, card)
+    torch.cuda.empty_cache()
     for path, name in (("train_cli_swin", "window_attention"),
                        ("train_cli_hybrid", "global_attention"),
                        ("train_cli_hybrid", "global_attention_backward"),
                        ("deploy_flagship", "window_attention"),
                        ("deploy_flagship_points", "window_attention"),
                        ("deploy_hybrid", "global_attention"),
-                       ("eval_others_pt2", "window_attention")):
+                       ("eval_others_pt2", "window_attention"),
+                       ("parallel_world1", "window_attention")):
         if path_launches[path][name] < 1:
             fail(f"{name} was launched no time on {path}")
     del served_problem

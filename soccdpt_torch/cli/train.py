@@ -14,24 +14,43 @@ the reference (train_SOccDPT.py:437-449).
 
 The sweep's ``load`` parameter starts a trial from weights: a ``.pth`` or
 ``.pt`` file is a reference-layout torch checkpoint, read through
-``core/torch_import.py`` and merged leniently; anything else is a
-checkpoint this CLI wrote, of which the weights are taken, with a fresh
-optimizer (the reference's ``--load``).
+``core/torch_import.py`` and merged leniently; an ``.npz`` is a JAX-package
+checkpoint converted by ``scripts/orbax_to_npz.py``; anything else is a
+checkpoint this CLI wrote. The weights are taken, with a fresh optimizer
+(the reference's ``--load``).
 
 Batches come as in the JAX CLI: ``iterate_batches``, a host thread
 (``data.loader.prefetch``) that reads ``--host_prefetch`` batches ahead
 (0: read on the loop's own thread), then ``device_prefetch`` with
 ``Trainer.to_device_batch`` (pinned memory, ``non_blocking`` copies), one
 batch ahead of the step.
+
+Data and tensor parallelism: under ``torchrun`` every rank runs
+:func:`main`, which joins the process group
+(``parallel/mesh.py::init_distributed``: NCCL on the cards, one a rank),
+and ``--tp N`` lays the ranks out as a (data, model) mesh with ``model =
+N`` (``--tp`` must divide the world size):
+
+    torchrun --nproc-per-node 8 -m soccdpt_torch.cli.train --tp 2 -v 3 ...
+
+The global batch is the sweep's ``batch_size``. Each rank reads its data
+index's share of it (``iterate_batches(..., process_index,
+process_count)``, as the JAX CLI does), and the step is the global
+batch's (``train/trainer.py``). Rank 0 alone runs the eval rounds and
+writes the logs, the panels and the checkpoints; every rank joins the
+gather of the sharded optimizer state before a checkpoint.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import os
 from typing import Dict, Optional, Union
 
 import torch
+
+from ..parallel import mesh as mesh_lib
 
 # batches the host thread reads ahead of the loop; 0 reads them on the
 # loop's own thread
@@ -84,10 +103,13 @@ def load_weights(model: torch.nn.Module, path: str, version: int) -> Optional[Di
     """Weights from ``path`` into ``model`` in place. A ``.pth``/``.pt`` file
     is a reference-layout torch checkpoint (``core/torch_import.py``, merged
     leniently, every leaf the file lacks kept); returns the merge's reports
-    then. Anything else is a checkpoint of this package: its ``params``
-    and, where it has them, ``batch_stats`` replace the model's (weights
-    only: the optimizer starts afresh)."""
-    from ..core.checkpoint import restore_checkpoint
+    then. An ``.npz`` is a JAX-package checkpoint converted by
+    ``scripts/orbax_to_npz.py``: its variables must match the model leaf
+    for leaf (``weights.load_jax_variables``). Anything else is a
+    checkpoint of this package: its ``params`` and, where it has them,
+    ``batch_stats`` replace the model's. Weights only: the optimizer starts
+    afresh."""
+    from ..core.checkpoint import restore_checkpoint, restore_jax_export
     from ..core.torch_import import (
         family_of,
         import_soccdpt,
@@ -100,6 +122,11 @@ def load_weights(model: torch.nn.Module, path: str, version: int) -> Optional[Di
         sd = load_torch_state_dict(path)
         params, stats = import_soccdpt(sd, version, family_of(model.cfg.backbone))
         return load_imported(model, params, stats)
+    if path.endswith(".npz"):
+        from ..weights import load_jax_variables
+
+        load_jax_variables(model, restore_jax_export(path)["variables"])
+        return None
     restored = restore_checkpoint(path)
     model.load_state_dict({**model.state_dict(), **restored["params"],
                            **restored.get("batch_stats", {})})
@@ -110,7 +137,9 @@ def load_weights(model: torch.nn.Module, path: str, version: int) -> Optional[Di
 def training_checkpoint(model: torch.nn.Module, state) -> Dict:
     """What an epoch's checkpoint holds: the parameters and the BatchNorm
     statistics by the model's own names, Adam's moments by flax path, its
-    step count and learning rate, and the patch-step count."""
+    step count and learning rate, and the patch-step count. ``state`` has
+    full moments (``Trainer.gather_state`` on a tensor-parallel mesh), so
+    the checkpoint restores onto any mesh."""
     names = {name for name, _ in model.named_parameters()}
     sd = model.state_dict()
     return {
@@ -132,11 +161,14 @@ def train_one(
     camera=None,
     device: Union[str, torch.device, None] = None,
     host_prefetch: int = HOST_PREFETCH,
+    mesh: Optional[mesh_lib.Mesh] = None,
 ) -> Dict[str, float]:
+    """One trial. ``mesh`` (default: ``Trainer.default_mesh(tcfg)``, which
+    every rank of the world builds together) says which ranks train; a
+    rank outside it returns at once."""
     from ..core.checkpoint import checkpoint_dir, save_checkpoint
     from ..core.config import ModelConfig
     from ..data.loader import device_prefetch, iterate_batches, prefetch, split_train_val
-    from ..train.evaluate import evaluate_depth_seg, make_eval_forward
     from ..train.trainer import Trainer
     from ..utils.logging import MetricWriter
     from ..utils.timing import StepTimer
@@ -147,7 +179,14 @@ def train_one(
     train_set, val_set = split_train_val(
         dataset, tcfg.val_percent, tcfg.dataset_percentage, seed=tcfg.seed
     )
-    print(f"train={len(train_set)} val={len(val_set)}")
+    if mesh is None:
+        mesh = Trainer.default_mesh(tcfg)
+    if not mesh.active:
+        print(f"rank {mesh.rank}: outside the mesh {dict(mesh.shape)}, idle")
+        return {}
+    lead = mesh.rank == 0
+    if lead:
+        print(f"train={len(train_set)} val={len(val_set)}")
 
     mcfg_kw = dict(
         model_type=model_type,
@@ -160,22 +199,30 @@ def train_one(
         mcfg_kw["camera"] = camera
     mcfg = ModelConfig(**mcfg_kw)
 
-    trainer = Trainer(mcfg, tcfg, device=device)
-    print(f"device: {trainer.device}")
+    trainer = Trainer(mcfg, tcfg, device=device, mesh=mesh)
+    if lead:
+        print(f"device: {trainer.device}, mesh: {dict(mesh.shape)}")
     state = trainer.init_state(tcfg.seed)
     if tcfg.load:
         load_weights(trainer.model, tcfg.load, version)
 
-    writer = MetricWriter(log_dir=log_dir, run_id=run_id)
+    writer = MetricWriter(log_dir=log_dir if lead else None, run_id=run_id)
     timer = StepTimer()
-    generator = torch.Generator(device=trainer.device).manual_seed(tcfg.seed + 1)
+    # the ranks along "model" hold the same rows and draw the same numbers
+    generator = torch.Generator(device=trainer.device).manual_seed(
+        tcfg.seed + 1 + mesh.data_index)
     global_step = 0
     division_step = max(len(train_set) // (3 * tcfg.batch_size), 1)
     last_eval: Dict[str, float] = {}
 
     for epoch in range(1, tcfg.epochs + 1):
-        batches = iterate_batches(train_set, tcfg.batch_size, shuffle=True, seed=tcfg.seed,
-                                  epoch=epoch)
+        # every data index takes as many batches as the smallest share gives,
+        # so that no rank waits in a collective that another never joins
+        local = mesh_lib.local_batch_size(tcfg.batch_size, mesh)
+        batches = itertools.islice(
+            iterate_batches(train_set, local, shuffle=True, seed=tcfg.seed, epoch=epoch,
+                            process_index=mesh.data_index, process_count=mesh.dp),
+            len(train_set) // mesh.dp // local)
         if host_prefetch > 0:
             batches = prefetch(batches, size=host_prefetch)
         for batch in device_prefetch(batches, trainer.to_device_batch):
@@ -193,46 +240,62 @@ def train_one(
             )
 
             if global_step % division_step == 0:
-                forward = make_eval_forward(trainer.model)
-                last_eval = evaluate_depth_seg(
-                    forward, iterate_batches(val_set, 1, shuffle=False), max_batches=16
-                )
-                writer.log({f"val/{k}": v for k, v in last_eval.items()}, global_step)
-                if tcfg.log_histograms:
-                    from ..utils.logging import param_histograms
-
-                    writer.log(param_histograms(trainer.model), global_step)
-                if tcfg.log_visuals and log_dir:
-                    # eval-round side-by-side panel, like the reference's
-                    # wandb.Image logging (utils/__init__.py:646-753)
-                    from ..utils import visualize
-
-                    s0 = val_set[0]
-                    inv_d, seg_p = forward(s0["image"][None])
-                    panel = visualize.eval_panel(
-                        s0["image_raw"],
-                        inv_d[0].float().cpu().numpy(),
-                        s0.get("disparity"),
-                        seg_p[0].float().cpu().numpy(),
-                        s0.get("seg"),
-                        class_2_color,
-                    )
-                    visualize.save_image(
-                        os.path.join(log_dir, f"{run_id}_step{global_step:06d}.png"), panel
-                    )
+                if lead:
+                    last_eval = eval_round(trainer, tcfg, val_set, class_2_color, writer,
+                                           log_dir, run_id, global_step)
+                # the logged loss is the global batch's on every rank, so the
+                # learning rate moves alike everywhere
                 state = trainer.on_plateau_metric(state, loss)
             global_step += 1
             if max_steps is not None and global_step >= max_steps:
                 break
         if tcfg.save_checkpoint:
-            run_dir = checkpoint_dir(tcfg.checkpoint_dir, tcfg.project_name, run_id)
-            save_checkpoint(os.path.join(run_dir, f"checkpoint_epoch_{epoch}"),
-                            training_checkpoint(trainer.model, state))
-            print(f"Checkpoint {epoch} saved!")
+            full = trainer.gather_state(state)
+            if lead:
+                run_dir = checkpoint_dir(tcfg.checkpoint_dir, tcfg.project_name, run_id)
+                save_checkpoint(os.path.join(run_dir, f"checkpoint_epoch_{epoch}"),
+                                training_checkpoint(trainer.model, full))
+                print(f"Checkpoint {epoch} saved!")
         if max_steps is not None and global_step >= max_steps:
             break
     writer.close()
     return last_eval
+
+
+def eval_round(trainer, tcfg, val_set, class_2_color, writer, log_dir, run_id, global_step):
+    """Validation metrics of the model as it stands, logged; the weight
+    histograms and a side-by-side panel when the config asks for them."""
+    from ..data.loader import iterate_batches
+    from ..train.evaluate import evaluate_depth_seg, make_eval_forward
+
+    forward = make_eval_forward(trainer.model)
+    metrics = evaluate_depth_seg(
+        forward, iterate_batches(val_set, 1, shuffle=False), max_batches=16
+    )
+    writer.log({f"val/{k}": v for k, v in metrics.items()}, global_step)
+    if tcfg.log_histograms:
+        from ..utils.logging import param_histograms
+
+        writer.log(param_histograms(trainer.model), global_step)
+    if tcfg.log_visuals and log_dir:
+        # eval-round side-by-side panel, like the reference's
+        # wandb.Image logging (utils/__init__.py:646-753)
+        from ..utils import visualize
+
+        s0 = val_set[0]
+        inv_d, seg_p = forward(s0["image"][None])
+        panel = visualize.eval_panel(
+            s0["image_raw"],
+            inv_d[0].float().cpu().numpy(),
+            s0.get("disparity"),
+            seg_p[0].float().cpu().numpy(),
+            s0.get("seg"),
+            class_2_color,
+        )
+        visualize.save_image(
+            os.path.join(log_dir, f"{run_id}_step{global_step:06d}.png"), panel
+        )
+    return metrics
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -261,9 +324,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--tp",
         type=int,
-        default=1,
-        help="tensor-parallel axis size; only 1: tensor parallelism is not "
-        "ported yet (ROADMAP.md, queue 1, parallel/)",
+        default=None,
+        help="tensor-parallel axis size (default: the sweep's tp, else 1): the ranks "
+        "form a (data, model) mesh with model = tp, which must divide the world size",
     )
     parser.add_argument(
         "--host_prefetch",
@@ -280,11 +343,10 @@ def main(argv=None):
     from ..core.config import SweepConfig, train_config_from_params
 
     args = build_parser().parse_args(argv)
-    if args.tp > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor parallelism (the JAX package's parallel/) is not "
-            "ported to soccdpt_torch yet (ROADMAP.md, queue 1)"
-        )
+    started = not torch.distributed.is_initialized()
+    rank = mesh_lib.init_distributed(args.device)
+    if args.tp is not None and rank.world_size % max(args.tp, 1) != 0:
+        raise ValueError(f"--tp {args.tp} does not divide the world size {rank.world_size}")
 
     sweep = SweepConfig.load(args.sweep_json)
     sweep.override(
@@ -294,12 +356,29 @@ def main(argv=None):
     )
     project_name = f"SOccDPT_V{args.version}_{args.model_type}_{args.dataset}"
 
+    trials = []
+    for params in sweep.trials(count=args.count):
+        tcfg = dataclasses.replace(train_config_from_params(params), project_name=project_name)
+        if args.tp is not None:
+            tcfg = dataclasses.replace(tcfg, tp=args.tp)
+        trials.append((params, tcfg))
+    # every rank of the world builds every trial's mesh here, in the same
+    # order, before any trial trains: a rank that a trial's mesh leaves out
+    # then skips the trial instead of waiting in the next one's groups
+    # while the others train
+    from ..train.trainer import Trainer
+
+    meshes = {}
+    for _, tcfg in trials:
+        key = (tcfg.batch_size, tcfg.tp)
+        if key not in meshes:
+            meshes[key] = Trainer.default_mesh(tcfg)
+
     results = []
-    for i, params in enumerate(sweep.trials(count=args.count)):
-        tcfg = train_config_from_params(params)
-        tcfg = dataclasses.replace(tcfg, project_name=project_name)
+    for i, (params, tcfg) in enumerate(trials):
         run_id = f"trial{i:03d}"
-        print(f"=== {project_name} {run_id}: {params}")
+        if rank.rank == 0:
+            print(f"=== {project_name} {run_id}: {params}")
         results.append(
             train_one(
                 tcfg,
@@ -308,10 +387,13 @@ def main(argv=None):
                 run_id,
                 max_steps=args.max_steps,
                 log_dir=args.log_dir,
-                device=args.device,
+                device=rank.device,
                 host_prefetch=args.host_prefetch,
+                mesh=meshes[(tcfg.batch_size, tcfg.tp)],
             )
         )
+    if started and torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     return results
 
 

@@ -1,16 +1,23 @@
 """Checkpoints as torch state dicts, in the reference's directory layout.
 
-The part of ``soccdpt_tpu/core/checkpoint.py`` the occupancy trainer
-needs: ``checkpoint_dir``, ``save_checkpoint`` / ``restore_checkpoint``
-(one ``torch.save`` file of a dict, e.g. ``{"params": model.state_dict()}``,
-read back onto the CPU) and ``load_params_lenient``. The JAX package's
-orbax checkpoints are not read here yet (ROADMAP.md).
+The port of ``soccdpt_tpu/core/checkpoint.py``: ``checkpoint_dir``,
+``save_checkpoint`` / ``restore_checkpoint`` (one ``torch.save`` file of a
+dict, e.g. ``{"params": model.state_dict()}``, read back onto the CPU) and
+``load_params_lenient``. A save is topology-free: the trainer gathers the
+sharded optimizer state first (``Trainer.gather_state``) and one rank
+writes.
+
+The JAX package's orbax checkpoints need JAX to read.
+``scripts/orbax_to_npz.py`` (run where JAX is installed) writes one as an
+``.npz`` of flax paths, which :func:`restore_jax_export` reads with numpy
+alone.
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Dict, Mapping
 
+import numpy as np
 import torch
 
 
@@ -57,3 +64,50 @@ def load_params_lenient(
         for name in skipped[:20]:
             print("  ", name)
     return merged
+
+
+def _nest(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, value in flat.items():
+        *scopes, leaf = path.split("/")
+        node = tree
+        for scope in scopes:
+            node = node.setdefault(scope, {})
+        node[leaf] = value
+    return tree
+
+
+def restore_jax_export(path: str) -> Dict[str, Any]:
+    """A JAX-package checkpoint converted by ``scripts/orbax_to_npz.py``: an
+    ``.npz`` whose keys are ``/``-joined flax paths, ``params/...``,
+    ``batch_stats/...``, ``opt_state/mu/...``, ``opt_state/nu/...``,
+    ``opt_state/count``, ``opt_state/learning_rate`` and ``step``. Returns
+    ``{"variables": {"params": tree, "batch_stats": tree}, "opt_state":
+    {"count", "learning_rate", "mu", "nu"}, "step"}``: the variables as
+    nested dicts of numpy arrays in the flax layouts (what
+    ``weights.load_jax_variables`` reads), the moments by dotted flax path,
+    in the flax layouts too (``weights.moments_to_torch``). A file without
+    the optimizer state gives ``opt_state`` ``None``."""
+    with np.load(os.path.abspath(path), allow_pickle=False) as npz:
+        flat = {key: npz[key] for key in npz.files}
+    groups: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in flat.items():
+        top, _, rest = key.partition("/")
+        if top == "opt_state" and rest.startswith(("mu/", "nu/")):
+            top, _, rest = rest.partition("/")
+            rest = rest.replace("/", ".")
+        groups.setdefault(top, {})[rest] = value
+    unknown = set(groups) - {"params", "batch_stats", "mu", "nu", "opt_state", "step"}
+    if unknown or "params" not in groups:
+        raise KeyError(f"{path}: not a JAX checkpoint export (top-level keys {sorted(groups)})")
+    opt = None
+    if "mu" in groups:
+        scalars = groups["opt_state"]
+        opt = {"count": int(scalars["count"]), "learning_rate": float(scalars["learning_rate"]),
+               "mu": groups["mu"], "nu": groups["nu"]}
+    return {
+        "variables": {"params": _nest(groups["params"]),
+                      "batch_stats": _nest(groups.get("batch_stats", {}))},
+        "opt_state": opt,
+        "step": int(groups["step"][""]) if "step" in groups else 0,
+    }

@@ -165,10 +165,11 @@ class ModelConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters, with the field names and defaults of the
-    JAX package's ``TrainConfig``. Its ``mesh_shape``, ``mesh_axes``, ``tp``
-    and ``tp_min_size`` are left out: the port trains on one card so far,
-    and data and tensor parallelism are still to be ported (ROADMAP.md,
-    queue 1)."""
+    JAX package's ``TrainConfig``. Its ``mesh_shape`` and ``mesh_axes`` are
+    left out: nothing in either package reads them (the mesh comes from
+    ``tp`` and the world size, ``Trainer.default_mesh``), and a sweep that
+    sets them loses nothing, since ``train_config_from_params`` ignores
+    unknown keys."""
 
     epochs: int = 15
     batch_size: int = 3
@@ -198,6 +199,12 @@ class TrainConfig:
     # subsample the GT tensors k-fold per axis on the host before the copy
     # to the device (k^2 fewer bytes); 1 keeps the full-resolution GT
     gt_downscale: int = 1
+    # tensor-parallel axis size: the ranks arrange as a (data, model) mesh
+    # with model = tp, and Adam's moments and update of the large leaves
+    # are sharded over "model" (parallel/sharding.py); 1 = pure data parallel
+    tp: int = 1
+    # leaves with fewer elements than this stay replicated under tp > 1
+    tp_min_size: int = 2**16
     remat_backbone: bool = False  # recompute backbone blocks in the backward
     log_histograms: bool = False  # per-leaf weight stats at eval rounds
     log_visuals: bool = True  # eval-round visualization panels
@@ -261,15 +268,7 @@ class SweepConfig:
 
 
 def train_config_from_params(params: Dict[str, Any]) -> TrainConfig:
-    """Build a TrainConfig from a sweep-trial dict, ignoring unknown keys.
-    The JAX package's parallelism keys (``mesh_shape``, ``mesh_axes``,
-    ``tp_min_size``) are ignored with them; a ``tp`` above 1 raises, since
-    tensor parallelism is not ported (ROADMAP.md, queue 1, ``parallel/``)."""
-    if int(params.get("tp", 1)) > 1:
-        raise NotImplementedError(
-            f"tp={params['tp']}: tensor parallelism (the JAX package's parallel/) is "
-            "not ported to soccdpt_torch yet (ROADMAP.md, queue 1)"
-        )
+    """Build a TrainConfig from a sweep-trial dict, ignoring unknown keys."""
     known = {f.name for f in dataclasses.fields(TrainConfig)}
     kw: Dict[str, Any] = {}
     for k, v in params.items():

@@ -20,6 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.comm import all_reduce_sum
+
 
 def cast_param(mod: nn.Module, name: str, dtype: torch.dtype):
     """``getattr(mod, name)`` in ``dtype``. Without gradients the cast is
@@ -83,12 +85,28 @@ def batch_norm_nhwc(mod: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> to
     and biased variance and moves the running statistics towards them by
     ``mod.momentum`` (0.1, flax's ``momentum=0.9``). The running variance
     takes the biased batch variance, as flax's ``batch_stats`` does, where
-    ``nn.BatchNorm2d`` itself would store the unbiased one."""
+    ``nn.BatchNorm2d`` itself would store the unbiased one.
+
+    Under data parallelism the trainer gives the module a
+    ``process_group`` (the ranks that hold the other rows of the batch),
+    and the moments are the global batch's, in two passes: the sum and the
+    count summed over the group, then the squared deviations from that
+    mean. Both sums are differentiable, so the gradient of every rank's
+    loss reaches every rank's rows. Without a group the moments are the
+    local batch's, computed as on one process."""
     xf = x.float()
     if mod.training:
         dims = tuple(range(x.dim() - 1))
-        mean = xf.mean(dim=dims)
-        var = xf.var(dim=dims, unbiased=False)
+        group = getattr(mod, "process_group", None)
+        if group is None:
+            mean = xf.mean(dim=dims)
+            var = xf.var(dim=dims, unbiased=False)
+        else:
+            total = xf.sum(dim=dims)
+            count = xf.new_full((1,), xf.numel() // xf.shape[-1])
+            total, count = all_reduce_sum(torch.cat([total, count]), group).split([len(total), 1])
+            mean = total / count
+            var = all_reduce_sum(torch.square(xf - mean).sum(dim=dims), group) / count
         with torch.no_grad():
             mod.running_mean.lerp_(mean, mod.momentum)
             mod.running_var.lerp_(var, mod.momentum)

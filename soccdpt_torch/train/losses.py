@@ -8,10 +8,18 @@ cross-entropy on probabilities. Reductions guard their divisors with
 ``torch.where`` instead of branching on data, so every function is
 differentiable everywhere and never syncs the host. All of it runs in
 f32 whatever the network's dtype: the trainer casts before it calls.
+
+The reductions divide a sum over the batch by a sum of the mask. Under
+data parallelism a rank holds some rows of the batch: ``global_sum``
+(given by the trainer) sums a divisor over the ranks that hold the other
+rows, so a rank's loss is its rows' share of the global batch's, and the
+shares add up to it. Averaging the ranks' own losses would be another
+function wherever their mask counts differ. A divisor depends on the
+masks alone, so the sum carries no gradient.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -42,21 +50,30 @@ def compute_scale_and_shift(
     return x_0, x_1
 
 
-def _reduction_batch_based(image_loss: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
-    divisor = torch.sum(M)
+GlobalSum = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _global(divisor: torch.Tensor, global_sum: GlobalSum) -> torch.Tensor:
+    return divisor if global_sum is None else global_sum(divisor.detach())
+
+
+def _reduction_batch_based(
+    image_loss: torch.Tensor, M: torch.Tensor, global_sum: GlobalSum = None
+) -> torch.Tensor:
+    divisor = _global(torch.sum(M), global_sum)
     total = torch.sum(image_loss) / torch.clamp(divisor, min=1.0)
     return torch.where(divisor == 0, torch.zeros_like(total), total)
 
 
-def mse_loss(prediction, target, mask):
+def mse_loss(prediction, target, mask, global_sum: GlobalSum = None):
     mask = mask.to(prediction.dtype)
     M = torch.sum(mask, dim=(1, 2))
     res = prediction - target
     image_loss = torch.sum(mask * res * res, dim=(1, 2))
-    return _reduction_batch_based(image_loss, 2 * M)
+    return _reduction_batch_based(image_loss, 2 * M, global_sum)
 
 
-def gradient_loss(prediction, target, mask):
+def gradient_loss(prediction, target, mask, global_sum: GlobalSum = None):
     mask = mask.to(prediction.dtype)
     M = torch.sum(mask, dim=(1, 2))
     diff = mask * (prediction - target)
@@ -68,7 +85,7 @@ def gradient_loss(prediction, target, mask):
     grad_y = mask[:, 1:, :] * mask[:, :-1, :] * grad_y
 
     image_loss = torch.sum(grad_x, dim=(1, 2)) + torch.sum(grad_y, dim=(1, 2))
-    return _reduction_batch_based(image_loss, M)
+    return _reduction_batch_based(image_loss, M, global_sum)
 
 
 def scale_and_shift_invariant_loss(
@@ -78,6 +95,7 @@ def scale_and_shift_invariant_loss(
     alpha: float = 0.5,
     scales: int = 4,
     do_compute_scale_and_shift: bool = True,
+    global_sum: GlobalSum = None,
 ) -> torch.Tensor:
     """MSE of the aligned prediction plus ``alpha`` times the gradient loss
     at ``scales`` strides 1, 2, 4, ...; all of (B, H, W)."""
@@ -87,7 +105,7 @@ def scale_and_shift_invariant_loss(
         scale, shift = target.new_ones(target.shape[0]), target.new_zeros(target.shape[0])
     pred_ssi = scale[:, None, None] * prediction + shift[:, None, None]
 
-    total = mse_loss(pred_ssi, target, mask)
+    total = mse_loss(pred_ssi, target, mask, global_sum)
     if alpha > 0:
         for s in range(scales):
             step = 2**s
@@ -95,6 +113,7 @@ def scale_and_shift_invariant_loss(
                 pred_ssi[:, ::step, ::step],
                 target[:, ::step, ::step],
                 mask[:, ::step, ::step],
+                global_sum,
             )
     return total
 
@@ -108,6 +127,7 @@ def ssi_loss_from_net(
     do_compute_scale_and_shift: bool = True,
     method: str = "bicubic",
     align_corners: bool = False,
+    global_sum: GlobalSum = None,
 ) -> torch.Tensor:
     """The SSI loss of a net-resolution prediction against a GT-resolution
     target: the prediction resized to the target's size, then
@@ -118,7 +138,7 @@ def ssi_loss_from_net(
     here, and its backward one bicubic backward instead of four.)"""
     pred_full = resize_nchw(prediction_net, tuple(target.shape[-2:]), method, align_corners)
     return scale_and_shift_invariant_loss(
-        pred_full, target, mask, alpha, scales, do_compute_scale_and_shift
+        pred_full, target, mask, alpha, scales, do_compute_scale_and_shift, global_sum
     )
 
 
@@ -128,6 +148,7 @@ def masked_bce_loss(
     mask: torch.Tensor,
     eps: float = 1e-7,
     pos_weight: float = 1.0,
+    global_sum: GlobalSum = None,
 ) -> torch.Tensor:
     """Mean binary cross-entropy over the masked elements, on probabilities
     (the seg head already applies its sigmoid), clamped to
@@ -136,7 +157,7 @@ def masked_bce_loss(
     mask = mask.to(prediction.dtype)
     p = torch.clamp(prediction, eps, 1.0 - eps)
     bce = -(pos_weight * target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p))
-    return torch.sum(bce * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(bce * mask) / torch.clamp(_global(torch.sum(mask), global_sum), min=1.0)
 
 
 def joint_loss(

@@ -26,8 +26,24 @@ the decoupled weight decay moves a frozen leaf. ``torch.optim.AdamW``
 skips a parameter without a gradient altogether and counts steps per
 parameter, which is something else from the second patch on.
 
-Data and tensor parallelism (the JAX trainer's mesh, ``param_shardings``
-and ``reshard_state``) are still to be ported (ROADMAP.md).
+Data and tensor parallelism follow the JAX trainer's mesh
+(``parallel/mesh.py``): the global batch is split over the ``data`` axis
+(the ranks along ``model`` hold the same rows), and after each patch
+step's backward the gradients of the mask's active leaves are summed over
+the ranks that hold the other rows. The loss's divisors and BatchNorm's
+moments are the global batch's (``train/losses.py``,
+``models/layers.py::batch_norm_nhwc``), so the loss, the gradients and the
+running statistics are those of one process on the global batch. Adam's
+moments and update are sharded over ``model`` by the JAX package's rule
+(``parallel/sharding.py``): a rank holds and updates its slice of a
+sharded leaf, and the slices are gathered into the full weight with an
+in-place ``copy_``, which bumps the weight's version counter, so the caches
+keyed on ``(data_ptr, _version)`` see the new weights. The model keeps its
+full weights for the forward. The model is not wrapped in
+``DistributedDataParallel``: the patch steps change which parameters take
+gradients at every step, and DDP fixes its buckets when it is built.
+Without a process group none of this runs and a step is the
+single-process step.
 """
 from __future__ import annotations
 
@@ -36,12 +52,17 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.nn.modules.batchnorm import _BatchNorm
 
 from ..core.config import ModelConfig, TrainConfig
 from ..core.device import resolve_device
+from ..models.bias_cache import build_inference_cache
 from ..models.soccdpt import build_model
 from ..ops.resize import resize_nchw
-from ..weights import named_flax_params
+from ..parallel import comm
+from ..parallel import mesh as mesh_lib
+from ..parallel.sharding import param_sharding_rules, shard_slice
+from ..weights import load_jax_variables, moments_to_torch, named_flax_params
 from .losses import masked_bce_loss, ssi_loss_from_net
 from .patchwise import Mask, encoder_mask, patch_masks, select_trainable
 
@@ -53,7 +74,8 @@ BATCH_KEYS = ("image", "disparity", "mask_disp", "seg", "mask_seg")
 class TrainState:
     """What a step carries besides the model: ``step`` counts patch steps;
     ``count`` is Adam's one step count for every leaf; ``mu`` and ``nu``
-    are its moments by flax path."""
+    are its moments by flax path (on a rank of a tensor-parallel mesh, a
+    sharded leaf's slice)."""
 
     step: int
     learning_rate: float
@@ -88,7 +110,10 @@ class MaskedAdamW:
     """AdamW (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay) over a
     fixed list of parameters, with the JAX step's arithmetic under a patch
     mask (see the module docstring). The moments and the count live in the
-    ``TrainState`` it is given."""
+    ``TrainState`` it is given. With ``shards`` (``{flax path: dim}``) a
+    sharded leaf's moments are this rank's slice along that dim, the update
+    runs on the slices of the gradient and the weight, and the updated
+    slices are gathered over ``mesh.model_group`` into the full weight."""
 
     def __init__(self, weight_decay: float):
         self.weight_decay = weight_decay
@@ -99,18 +124,24 @@ class MaskedAdamW:
         state: TrainState,
         params: List[Tuple[str, torch.nn.Parameter]],
         mask: Mask,
+        shards: Optional[Dict[str, int]] = None,
+        mesh: Optional[mesh_lib.Mesh] = None,
     ) -> None:
         """One step in place: every leaf's moments decay; the leaves the
         mask names take their gradient (zeros where they have none) and
         move."""
+        shards = shards or {}
         state.count += 1
         torch._foreach_mul_(list(state.mu.values()), ADAM_B1)
         torch._foreach_mul_(list(state.nu.values()), ADAM_B2)
         active = [(path, p) for path, p in params if mask[path]]
         if not active:
             return
-        ps = [p for _, p in active]
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in ps]
+        ps, grads = [], []
+        for path, p in active:
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            ps.append(shard_slice(p, shards.get(path), mesh))
+            grads.append(shard_slice(g, shards.get(path), mesh))
         mu = [state.mu[path] for path, _ in active]
         nu = [state.nu[path] for path, _ in active]
         torch._foreach_add_(mu, grads, alpha=1.0 - ADAM_B1)
@@ -122,7 +153,18 @@ class MaskedAdamW:
         torch._foreach_div_(update, denom)
         if self.weight_decay:
             torch._foreach_add_(update, ps, alpha=self.weight_decay)
-        torch._foreach_add_(ps, update, alpha=-state.learning_rate)
+        if not shards:
+            torch._foreach_add_(ps, update, alpha=-state.learning_rate)
+            return
+        new = torch._foreach_add(ps, update, alpha=-state.learning_rate)
+        for (path, p), w in zip(active, new):
+            dim = shards.get(path)
+            if dim is None:
+                p.copy_(w)
+            else:
+                # an in-place copy: the weight keeps its storage and its
+                # version counter moves, as the inference caches expect
+                p.copy_(comm.all_gather_dim(w, dim, mesh.model_group))
 
 
 def make_optimizer(tcfg: TrainConfig) -> MaskedAdamW:
@@ -135,13 +177,17 @@ def make_optimizer(tcfg: TrainConfig) -> MaskedAdamW:
 class Trainer:
     """``init_state`` builds the model (weights from a numpy seed, on the
     card unless ``device`` says otherwise) and the masks; ``train_step``
-    takes one optimizer step per patch mask on a batch."""
+    takes one optimizer step per patch mask on a batch. ``mesh`` (default:
+    :meth:`default_mesh` of ``tcfg.tp``) says which rows of the global
+    batch of ``tcfg.batch_size`` this rank holds and how the optimizer
+    state is sharded."""
 
     def __init__(
         self,
         mcfg: ModelConfig,
         tcfg: TrainConfig,
         device: Union[str, torch.device, None] = None,
+        mesh: Optional[mesh_lib.Mesh] = None,
     ) -> None:
         if tcfg.amp and mcfg.compute_dtype != "bfloat16":
             mcfg = dataclasses.replace(mcfg, compute_dtype="bfloat16")
@@ -154,39 +200,125 @@ class Trainer:
         self.mcfg = mcfg
         self.tcfg = tcfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else self.default_mesh(tcfg)
+        if not self.mesh.active:
+            raise ValueError(f"rank {self.mesh.rank} lies outside the mesh "
+                             f"{dict(self.mesh.shape)}")
         self.tx = make_optimizer(tcfg)
         self.scheduler = PlateauScheduler(tcfg.learning_rate)
         self.model: Optional[torch.nn.Module] = None
         self.params: List[Tuple[str, torch.nn.Parameter]] = []  # in flax leaf order
+        self.shards: Dict[str, int] = {}  # flax path -> dim sharded over "model"
         self.trainable_mask: Optional[Mask] = None
         self.masks: List[Mask] = []
 
     # -- initialization ------------------------------------------------
 
+    @staticmethod
+    def default_mesh(tcfg: TrainConfig) -> mesh_lib.Mesh:
+        """(data, model) mesh from ``tcfg.tp`` over the ranks of the default
+        process group (``parallel/mesh.py::mesh_for_batch``)."""
+        return mesh_lib.mesh_for_batch(tcfg.batch_size, tcfg.tp)
+
+    def param_shardings(self) -> Dict[str, Optional[int]]:
+        """``{flax path: the torch dim sharded over model, or None}`` on this
+        trainer's mesh (``parallel/sharding.py``)."""
+        return param_sharding_rules(self.model, self.mesh, min_size=self.tcfg.tp_min_size)
+
     def init_state(self, seed: int = 0) -> TrainState:
         """Build the model in training mode, the encoder freeze and the
-        patch-wise partition, and zeroed Adam moments."""
+        patch-wise partition, and zeroed Adam moments (this rank's slices
+        of the sharded leaves)."""
         self.model = build_model(
             self.mcfg, device=self.device, seed=seed, remat=self.tcfg.remat_backbone
         ).train()
+        if self.mesh.dp > 1:
+            # the ranks along "model" hold the same rows: a data axis of one
+            # leaves BatchNorm the single-process moments
+            for mod in self.model.modules():
+                if isinstance(mod, _BatchNorm):
+                    mod.process_group = self.mesh.data_group
         self.trainable_mask = encoder_mask(self.model, self.tcfg.encoder_percentage)
         self.masks = patch_masks(self.trainable_mask, self.tcfg.patchwise_percentage)
-        self.params = params = named_flax_params(self.model)
-        return TrainState(
-            step=0,
-            learning_rate=self.tcfg.learning_rate,
-            count=0,
-            mu={path: torch.zeros_like(p) for path, p in params},
-            nu={path: torch.zeros_like(p) for path, p in params},
-        )
+        self.params = named_flax_params(self.model)
+        self.shards = {path: d for path, d in self.param_shardings().items() if d is not None}
+
+        def zeros():
+            return {path: torch.zeros_like(shard_slice(p, self.shards.get(path), self.mesh))
+                    for path, p in self.params}
+
+        return TrainState(step=0, learning_rate=self.tcfg.learning_rate, count=0,
+                          mu=zeros(), nu=zeros())
+
+    def reshard_state(self, state: TrainState) -> TrainState:
+        """A state with full moments (fresh, or restored from a checkpoint
+        written on any mesh) placed on this trainer: on its device, each
+        sharded leaf's moments cut to this rank's slice."""
+        shapes = {path: p.shape for path, p in self.params}
+
+        def place(moments):
+            if set(moments) != set(shapes):
+                raise KeyError(f"moments do not match the parameters: "
+                               f"{sorted(set(moments) ^ set(shapes))[:10]}")
+            out = {}
+            for path, m in moments.items():
+                if m.shape != shapes[path]:
+                    raise ValueError(f"{path}: moment of shape {tuple(m.shape)}, the "
+                                     f"parameter's is {tuple(shapes[path])}")
+                m = m.to(self.device, torch.float32)
+                out[path] = shard_slice(m, self.shards.get(path), self.mesh).clone()
+            return out
+
+        return dataclasses.replace(state, mu=place(state.mu), nu=place(state.nu))
+
+    def gather_state(self, state: TrainState) -> TrainState:
+        """The state with full moments, gathered over the ranks along
+        ``model``: what a checkpoint holds, whatever the mesh. Every rank
+        calls it."""
+        if not self.shards:
+            return state
+
+        def full(moments):
+            return {path: comm.all_gather_dim(m, self.shards[path], self.mesh.model_group)
+                    if path in self.shards else m for path, m in moments.items()}
+
+        return dataclasses.replace(state, mu=full(state.mu), nu=full(state.nu))
+
+    def restore_state(self, checkpoint: Dict) -> TrainState:
+        """Resume from a checkpoint dict on this trainer's mesh: the
+        weights, the BatchNorm statistics, Adam's moments and counts and the
+        step. ``checkpoint`` is what ``cli/train.py::training_checkpoint``
+        wrote (through ``core/checkpoint.py::restore_checkpoint``), or a
+        JAX-package checkpoint converted to ``.npz``
+        (``core/checkpoint.py::restore_jax_export``)."""
+        if self.model is None:
+            raise RuntimeError("call init_state() before restore_state()")
+        opt = checkpoint["opt_state"]
+        if opt is None:
+            raise ValueError("the checkpoint holds no optimizer state: take its weights "
+                             "with cli/train.py::load_weights")
+        if "variables" in checkpoint:
+            load_jax_variables(self.model, checkpoint["variables"])
+            mu, nu = (moments_to_torch(self.model, opt[k]) for k in ("mu", "nu"))
+        else:
+            self.model.load_state_dict({**checkpoint["params"], **checkpoint["batch_stats"]})
+            build_inference_cache(self.model)
+            mu, nu = opt["mu"], opt["nu"]
+        self.scheduler.lr = float(opt["learning_rate"])
+        return self.reshard_state(TrainState(
+            step=int(checkpoint["step"]), learning_rate=float(opt["learning_rate"]),
+            count=int(opt["count"]), mu=mu, nu=nu))
 
     # -- train step ----------------------------------------------------
 
     def loss(
         self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """The training objective of a device batch and its two parts."""
+        """The training objective of a device batch and its two parts. On a
+        data-parallel mesh they are this rank's rows' shares of the global
+        batch's, which add up to it over the ranks that hold the rows."""
         tcfg = self.tcfg
+        global_sum = self._sum_over_data if self.mesh.distributed else None
         inv_depth, seg = self.model(batch["image"], return_raw=True, generator=generator)
         gt_hw = tuple(batch["disparity"].shape[-2:])
         l_disp = ssi_loss_from_net(
@@ -194,20 +326,37 @@ class Trainer:
             batch["disparity"].float(),
             batch["mask_disp"].float(),
             do_compute_scale_and_shift=tcfg.compute_scale_and_shift,
+            global_sum=global_sum,
         )
         seg_pred = resize_nchw(seg.float(), gt_hw, "nearest")
-        l_seg = masked_bce_loss(seg_pred, batch["seg"].float(), batch["mask_seg"].float())
+        l_seg = masked_bce_loss(seg_pred, batch["seg"].float(), batch["mask_seg"].float(),
+                                global_sum=global_sum)
         w_depth, w_seg = tcfg.loss_weights
         return w_depth * l_disp + w_seg * l_seg, {"loss_disp": l_disp, "loss_seg": l_seg}
+
+    def _sum_over_data(self, t: torch.Tensor) -> torch.Tensor:
+        return comm.all_reduce_(t.clone(), self.mesh.data_group)
 
     def _patch_step(self, state, batch, mask, generator):
         select_trainable(self.model, mask)
         self.model.zero_grad(set_to_none=True)
         loss, aux = self.loss(batch, generator)
         loss.backward()
-        self.tx.update(state, self.params, mask)
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+        if self.mesh.distributed:
+            # each rank back-propagated its rows' share of the global loss, so
+            # the sum of the gradients is the global batch's. That includes
+            # K7's dbias, which it sums over this rank's rows: summed over
+            # the ranks, it is the sum over the global batch that the JAX
+            # package's kernel gives.
+            grads = [p.grad for path, p in self.params if mask[path] and p.grad is not None]
+            comm.all_reduce_buckets_(grads, self.mesh.data_group)
+            # the logged losses are the global batch's: the sums of the shares
+            summed = comm.all_reduce_(torch.stack(list(metrics.values())), self.mesh.data_group)
+            metrics = dict(zip(metrics, summed.unbind()))
+        self.tx.update(state, self.params, mask, self.shards, self.mesh)
         state.step += 1
-        return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+        return metrics
 
     def train_step(
         self,
@@ -257,7 +406,9 @@ class Trainer:
     def to_device_batch(
         self, batch: Dict[str, Union[np.ndarray, torch.Tensor]]
     ) -> Dict[str, torch.Tensor]:
-        """Host to device with few bytes (the JAX trainer's
+        """This rank's rows (``parallel/mesh.py::shard_batch``: a global batch
+        is cut to them, a batch that is already this rank's share passes),
+        host to device with few bytes (the JAX trainer's
         ``shard_batch``): boolean and 0/1 masks travel as uint8 and are cast
         in the loss; with ``tcfg.gt_downscale = k > 1`` the GT tensors are
         subsampled k-fold per axis on the host first (the SSI loss is scale
@@ -265,6 +416,8 @@ class Trainer:
         statistics hold on the subsampled pixels). On a card the host
         arrays go through pinned memory and ``non_blocking`` copies.
         Tensors already on the device pass through untouched."""
+        batch = mesh_lib.shard_batch({k: batch[k] for k in BATCH_KEYS if k in batch},
+                                     self.mesh, self.tcfg.batch_size)
         out = {}
         ds = max(int(self.tcfg.gt_downscale), 1)
         for k in BATCH_KEYS:

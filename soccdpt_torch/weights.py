@@ -25,7 +25,9 @@ state by name, with these layout changes:
 
 ``to_jax_variables`` is the way back, for parameters, their gradients and
 the running statistics; ``named_flax_params`` lists the parameters under
-their flax paths in the JAX package's leaf order.
+their flax paths in the JAX package's leaf order; ``moments_to_torch``
+carries per-leaf arrays (Adam's moments) in, and ``flax_shape`` /
+``torch_dim`` map a leaf's shape and dims between the two layouts.
 """
 from __future__ import annotations
 
@@ -74,29 +76,66 @@ def _targets(model: nn.Module):
             yield mod.running_var, "batch_stats", pre + "var", None
 
 
+# torch dim i of a leaf in ``layout`` is flax dim ``_PERM[layout][i]``; a
+# transposed conv's kernel is also flipped along both spatial axes
+_PERM = {"dense": (1, 0), "conv": (3, 2, 0, 1), "conv3d": (4, 3, 0, 1, 2),
+         "conv_transpose": (2, 3, 0, 1)}
+
+
 def _to_torch_layout(arr: np.ndarray, layout) -> np.ndarray:
-    if layout == "dense":
-        return arr.T
-    if layout == "conv":
-        return arr.transpose(3, 2, 0, 1)
-    if layout == "conv3d":
-        return arr.transpose(4, 3, 0, 1, 2)
+    if layout is None:
+        return arr
     if layout == "conv_transpose":
-        return arr[::-1, ::-1].transpose(2, 3, 0, 1)
-    return arr
+        arr = arr[::-1, ::-1]
+    return arr.transpose(_PERM[layout])
 
 
 def _to_flax_layout(arr: np.ndarray, layout) -> np.ndarray:
     """The inverse of :func:`_to_torch_layout`."""
-    if layout == "dense":
-        return arr.T
-    if layout == "conv":
-        return arr.transpose(2, 3, 1, 0)
-    if layout == "conv3d":
-        return arr.transpose(2, 3, 4, 1, 0)
-    if layout == "conv_transpose":
-        return arr.transpose(2, 3, 0, 1)[::-1, ::-1]
-    return arr
+    if layout is None:
+        return arr
+    arr = arr.transpose(np.argsort(_PERM[layout]))
+    return arr[::-1, ::-1] if layout == "conv_transpose" else arr
+
+
+def flax_param_layouts(model: nn.Module) -> Dict[str, Any]:
+    """``{flax path: (parameter, layout)}`` for every parameter of ``model``;
+    the layout is ``None`` where flax and torch agree."""
+    return {path: (t, layout) for t, coll, path, layout in _targets(model) if coll == "params"}
+
+
+def flax_shape(shape, layout) -> Tuple[int, ...]:
+    """The flax shape of a leaf of torch shape ``shape`` in ``layout``."""
+    if layout is None:
+        return tuple(shape)
+    out = [0] * len(shape)
+    for torch_dim, flax_dim in enumerate(_PERM[layout]):
+        out[flax_dim] = shape[torch_dim]
+    return tuple(out)
+
+
+def torch_dim(flax_dim: int, layout) -> int:
+    """The torch dim that holds flax dim ``flax_dim`` of a leaf in ``layout``."""
+    return flax_dim if layout is None else _PERM[layout].index(flax_dim)
+
+
+def moments_to_torch(model: nn.Module, moments: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Per-leaf arrays of a JAX tree under dotted flax paths and in the flax
+    layouts (Adam's ``mu`` and ``nu``), in the torch layouts of
+    ``model``'s parameters; raises on a missing or extra path or a shape
+    that does not fit."""
+    layouts = flax_param_layouts(model)
+    if set(moments) != set(layouts):
+        raise KeyError(f"moments do not match the parameters: missing "
+                       f"{sorted(set(layouts) - set(moments))}, unused "
+                       f"{sorted(set(moments) - set(layouts))}")
+    out = {}
+    for path, (t, layout) in layouts.items():
+        arr = _to_torch_layout(np.asarray(moments[path], np.float32), layout)
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{path}: JAX shape {arr.shape} does not fit {tuple(t.shape)}")
+        out[path] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
 
 
 def named_flax_params(model: nn.Module) -> List[Tuple[str, nn.Parameter]]:

@@ -83,13 +83,13 @@ def test_train_cli_few_steps(bdd_tree, tmp_path, monkeypatch):
 def test_all_sweep_configs_load_and_yield_trials():
     """tests/test_cli.py::test_all_sweep_configs_load_and_yield_trials on
     the port, and for every sweep file the port's trials and ``TrainConfig``
-    are the JAX package's (the fields the port has: all but the JAX
-    package's four parallelism fields)."""
+    are the JAX package's (the fields the port has: all but ``mesh_shape``
+    and ``mesh_axes``, which neither package reads)."""
     paths = sorted(glob.glob(os.path.join(CONFIG, "*.json")))
     assert len(paths) >= 24, paths
     port_fields = {f.name for f in dataclasses.fields(pconfig.TrainConfig)}
     jax_fields = {f.name for f in dataclasses.fields(jconfig.TrainConfig)}
-    assert jax_fields - port_fields == {"mesh_shape", "mesh_axes", "tp", "tp_min_size"}
+    assert jax_fields - port_fields == {"mesh_shape", "mesh_axes"}
     assert port_fields <= jax_fields
     for path in paths:
         sweep = pconfig.SweepConfig.load(path)
@@ -115,10 +115,12 @@ def test_all_sweep_configs_load_and_yield_trials():
 
 
 def test_tensor_parallelism_raises(bdd_tree):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``--tp`` that does not divide the world raises: one process is a
+    world of 1. The sweep's parallelism keys are the JAX package's."""
+    with pytest.raises(ValueError, match="--tp 2 does not divide the world size 1"):
         ptrain.main(cli_args(bdd_tree, os.path.join(CONFIG, "test_tiny.json"), "--tp", "2"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pconfig.train_config_from_params({"tp": 2})
+    assert pconfig.train_config_from_params({"tp": 2, "tp_min_size": 256}) == \
+        pconfig.TrainConfig(tp=2, tp_min_size=256)
     assert pconfig.train_config_from_params({"tp": 1, "mesh_shape": (1,)}) == pconfig.TrainConfig()
 
 

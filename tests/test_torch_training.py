@@ -506,8 +506,9 @@ def test_remat_gives_the_same_gradients():
 
 def test_train_config_has_the_jax_fields_and_defaults():
     want = {f.name: f.default for f in dataclasses.fields(JaxTrainConfig)}
-    for parallel in ("mesh_shape", "mesh_axes", "tp", "tp_min_size"):
-        want.pop(parallel)
+    # read by neither package: the mesh comes from tp and the world size
+    for unread in ("mesh_shape", "mesh_axes"):
+        want.pop(unread)
     got = {f.name: f.default for f in dataclasses.fields(TrainConfig)}
     assert got == want
 
