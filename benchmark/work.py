@@ -1,0 +1,67 @@
+"""The yardstick of the kernels: the chip's peaks, the bytes and operations
+each kernel's work needs at given shapes, and the calls a request makes
+at a configuration's sizes.
+
+The counts are those of ``chip_smoke.py`` (``k1_bytes_flops``,
+``k6_bytes_flops``, ``k2_bytes``, ``bound``), copied
+so that the benchmark does not depend on the program's scripts: each
+input byte read once, each output byte written once.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+HBM_BYTES_PER_S = 3.35e12  # one H100 SXM, HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, at the 700 W limit
+
+
+def bound(nbytes: float, flops: float, dtype_name: str = "bfloat16") -> Tuple[float, str]:
+    """(least seconds the work needs, "bytes" or "operations": which bounds it)."""
+    byte_s = nbytes / HBM_BYTES_PER_S
+    flop_s = flops / PEAK_FLOPS[dtype_name]
+    return max(byte_s, flop_s), "bytes" if byte_s >= flop_s else "operations"
+
+
+def k1_bytes_flops(Bw: int, H: int, N: int, d: int, nW: int, itemsize: int):
+    """K1, window attention of Bw windows of N tokens: q, k, v and the
+    output, the f32 (H, N, N) bias and, when shifted, the f32 (nW, N, N)
+    mask; two products."""
+    nbytes = 4 * Bw * H * N * d * itemsize + H * N * N * 4 + (nW * N * N * 4 if nW else 0)
+    return nbytes, 4 * Bw * H * N * N * d
+
+
+def k6_bytes_flops(B: int, H: int, T: int, d: int, itemsize: int, bias_itemsize: int):
+    """K6, global attention: q, k, v, the output and the (H, T, T) bias."""
+    return 4 * B * H * T * d * itemsize + H * T * T * bias_itemsize, 4 * B * H * T * T * d
+
+
+def k2_bytes(rows: int, kept: int, num_slots: int, C: int) -> int:
+    """K2, the voxelizer's segment sum: the int32 key of every row, the f32
+    values of the kept rows, ``num_slots`` rows of C f32 written (the
+    whole grid, or the cells the kept rows reduce into)."""
+    return rows * 4 + kept * C * 4 + num_slots * C * 4
+
+
+def swin2_windows(bcfg: dict, batch: int) -> List[Tuple[int, int, int, int, int]]:
+    """(Bw, H, N, d, nW) of each Swin-V2 block's K1 call, in block order:
+    stage i runs at the patch grid halved i times, its window clamped to
+    the stage, shifted (with a mask) in odd blocks when the window is
+    smaller than the stage."""
+    grid = bcfg["img_size"] // bcfg["patch_size"]
+    out = []
+    for i, depth in enumerate(bcfg["depths"]):
+        res = grid >> i
+        ws = min(bcfg["window_size"], res)
+        windows = (res // ws) ** 2
+        heads = bcfg["num_heads"][i]
+        d = bcfg["embed_dim"] * 2**i // heads
+        for j in range(depth):
+            shifted = j % 2 == 1 and ws < res
+            out.append((batch * windows, heads, ws * ws, d, windows if shifted else 0))
+    return out
+
+
+def beit_attention(bcfg: dict, batch: int) -> Tuple[int, int, int, int]:
+    """(B, H, T, d) of each BEiT block's K6 call: the patch tokens and the cls."""
+    g = bcfg["img_size"] // bcfg["patch_size"]
+    return batch, bcfg["num_heads"], g * g + 1, bcfg["embed_dim"] // bcfg["num_heads"]
