@@ -16,6 +16,10 @@ request runs eagerly (the JAX package's ``jit=False``).
 
 ``serve_stream`` pipelines a stream of frames: a host thread that pulls
 frames, pinned copies on a side stream, and ``depth`` requests in flight.
+
+Spans (``utils/spans.py``, which lists them; off unless enabled) mark
+each request, a graph request's weight check, input copy and launch, and
+each frame ``serve_stream`` stages.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from .data.loader import device_prefetch, pinned_put, prefetch
 from .data.transforms import device_preprocess
 from .models.bias_cache import build_inference_cache
 from .models.soccdpt import compute_dtype
+from .utils.spans import span
 
 
 @contextlib.contextmanager
@@ -125,8 +130,10 @@ class _Capture:
         self.replays = 0
 
     def __call__(self, x: torch.Tensor):
-        self.input.copy_(x)  # on the stream, after the previous replay
-        self.graph.replay()
+        with span("serve.stage"):
+            self.input.copy_(x)  # on the stream, after the previous replay
+        with span("serve.launch"):
+            self.graph.replay()
         self.replays += 1
         # the caller owns what it gets: copies out of the graph's pool,
         # which the next replay overwrites
@@ -168,11 +175,20 @@ class GraphedFunction:
             self.weights = _Weights(model)
 
     def __call__(self, x: Union[np.ndarray, torch.Tensor]):
-        x = torch.as_tensor(x)
+        with span("serve.call"):
+            x = torch.as_tensor(x)
+            with span("serve.check"):
+                cap = self._graph(x)
+            with torch.inference_mode():
+                return cap(x)
+
+    def _graph(self, x: torch.Tensor) -> _Capture:
+        """The graph of ``x``'s shape on the current weights."""
+        shape = (tuple(x.shape), x.dtype)
         # the graphs were captured with every module in eval mode, so a
         # current model is one left in eval mode: no walk to set modes
-        if self.weights.current():
-            return self._replay(x)
+        if self.weights.current() and shape in self.graphs:
+            return self.graphs[shape]
         with eval_mode(self.model):
             if not self.weights.current():
                 self.graphs.clear()
@@ -181,15 +197,11 @@ class GraphedFunction:
                         self.refresh()
                 self.weights.snapshot()
                 self.recaptures += 1
-            return self._replay(x)
-
-    def _replay(self, x: torch.Tensor):
-        with torch.inference_mode():
-            shape = (tuple(x.shape), x.dtype)
             cap = self.graphs.get(shape)
             if cap is None:
-                cap = self.graphs[shape] = _Capture(self.fn, x.to(self.device))
-            return cap(x)
+                with torch.inference_mode():
+                    cap = self.graphs[shape] = _Capture(self.fn, x.to(self.device))
+            return cap
 
 
 def make_serving_fn(
@@ -242,10 +254,11 @@ def make_serving_fn(
             refresh=lambda: build_inference_cache(model, cache_dtype=bias_cache_dtype))
 
     def serve(frames_u8):
-        if isinstance(frames_u8, np.ndarray):
-            frames_u8 = torch.from_numpy(frames_u8)
-        with torch.inference_mode(), eval_mode(model):
-            return request(frames_u8.to(dev))
+        with span("serve.call"):
+            if isinstance(frames_u8, np.ndarray):
+                frames_u8 = torch.from_numpy(frames_u8)
+            with torch.inference_mode(), eval_mode(model):
+                return request(frames_u8.to(dev))
 
     serve.device = dev
     return serve
@@ -274,8 +287,13 @@ def serve_stream(
     :func:`make_serving_fn`, whose ``device`` says where frames go.
     """
     device = serve_fn.device
-    put = pinned_put(device)
+    pinned = pinned_put(device)
     cuda = device.type == "cuda"
+
+    def put(item):
+        with span("stream.stage"):
+            return pinned(item)
+
     source = frames if host_prefetch is None else prefetch(frames, size=host_prefetch)
     inflight: collections.deque = collections.deque()
 

@@ -3,7 +3,9 @@ outputs the caller owns, a weight load never served stale, ``serve_stream``
 against sequential serving, a second serving fn that keeps the first's
 graphs, a request after ``model.train()`` served as before it, the
 ViT-hybrid and the Swin-V1, LeViT and Next-ViT test configs served on the
-card against the CPU's plain versions, and a capture that fails.
+card against the CPU's plain versions, a request's spans
+(``utils/spans.py``) and a kernel inside a span on the profiler's clock,
+and a capture that fails.
 
 Every test here carries the ``gpu`` marker and skips without a card. This
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -30,6 +32,8 @@ from soccdpt_torch.kernels.global_attention import global_attention
 from soccdpt_torch.kernels.segment_sum import segment_sum
 from soccdpt_torch.models.soccdpt import build_model
 from soccdpt_torch.serving import GraphedFunction, make_serving_fn, serve_stream
+from soccdpt_torch.utils import spans
+from soccdpt_torch.utils.spans import span
 
 pytestmark = pytest.mark.gpu
 
@@ -234,6 +238,71 @@ def test_last_three_families_served_on_the_card_match_the_cpu(card, model_type):
     total = float(want[3].sum())
     assert total > 0
     assert float((got[3].cpu() - want[3]).abs().sum()) / total < 0.01
+
+
+def test_a_graph_request_records_its_spans_inside_its_call(card):
+    """One request after the capture: ``serve.check``, ``serve.stage`` and
+    ``serve.launch`` once each, in that order, inside one ``serve.call``."""
+    cfg, model = tiny_model(card, 0)
+    serve = make_serving_fn(cfg, model, compute_occ=True)
+    serve(frames(2, 7))
+    spans.clear()
+    spans.enable()
+    try:
+        serve(torch.from_numpy(frames(2, 8)).pin_memory())
+    finally:
+        spans.disable()
+    got = spans.snapshot()
+    spans.clear()
+    assert sorted(got) == ["serve.call", "serve.check", "serve.launch", "serve.stage"]
+    assert all(len(v) == 1 for v in got.values())
+    (c0, c1), = got["serve.call"]
+    inner = [got[name][0] for name in ("serve.check", "serve.stage", "serve.launch")]
+    assert c0 <= inner[0][0] and inner[-1][1] <= c1
+    for (a0, a1), (b0, b1) in zip(inner, inner[1:]):
+        assert a0 <= a1 <= b0 <= b1
+
+
+def test_a_kernel_inside_a_span_lies_within_it_on_the_profiler_clock(card):
+    """``torch.cuda._sleep`` launched and waited for inside a span, five
+    times, under a profiler that records the card alone: on the shared
+    clock each kernel lies inside its span, give or take 50 us, and at each
+    end the closest of the five lies within 50 us of the span's (a launch
+    and a synchronize apart). The host can only widen a span: a thread
+    that the machine schedules away late widens one by a millisecond now
+    and then, which an offset of the clock would not."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    spans.clear()
+    spans.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(5):
+                with span("sleep"):
+                    torch.cuda._sleep(2_000_000)
+                    torch.cuda.synchronize()
+    finally:
+        spans.disable()
+    got = spans.snapshot()["sleep"]
+    spans.clear()
+    start = prof.profiler.kineto_results.trace_start_ns()
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                      and "spin" in e.name and not getattr(e, "is_user_annotation", False)),
+                     key=lambda e: e.time_range.start)
+    assert len(kernels) == 6, [e.name for e in prof.events()]
+    after, before = [], []
+    for (s0, s1), e in zip(got, kernels[1:]):
+        after.append((start + e.time_range.start * 1e3 - s0) / 1e3)
+        before.append((s1 - start - e.time_range.end * 1e3) / 1e3)
+    print("kernel starts after its span (us):", [round(a, 1) for a in after],
+          "ends before its span (us):", [round(b, 1) for b in before])
+    assert min(after) >= -50 and min(before) >= -50
+    assert min(after) <= 50 and min(before) <= 50
 
 
 def test_a_capture_that_fails_raises(card):
