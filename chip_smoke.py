@@ -21,6 +21,13 @@ Phases, each of which fails the run on any error:
    attention, K7 its backward (against SDPA's backward, replayed alone);
    ``cuobjdump -sass`` of the K1, K3, K4, K5, K6 and K7 libraries must show
    ``HGMMA`` and ``UTMALDG``;
+2b. the decoder's bf16 2x bilinear upsample (``kernels/upsample.py``, the
+   ``soccdpt::upsample2x`` op) at the six calls a batch-6 request of each
+   benchmark cell makes (BEiT-L/512 and Swin-V2-T/256): one launch a call
+   and within one bf16 step of its plain version (``F.interpolate``, aten's
+   NHWC kernel), the share bit for bit; then timed by CUDA-graph replay
+   beside the plain version, aten's NCHW kernel on a contiguous NCHW copy
+   (the library) and the bytes bound;
 3. the decoder kernels K3 (fused residual conv unit), K4 (fusion-block
    tail) and K5 (depth-head tail), standalone ops on no path of the
    system, as in the JAX package: against their plain versions at the
@@ -29,10 +36,13 @@ Phases, each of which fails the run on any error:
    the live flagship decoder, whose modules' inputs and outputs forward
    hooks capture during one served request, each kernel held to the module
    it replaces on that module's weights (the launch counts set to 0 just
-   before and read just after); the CUDA launches of one call of each op,
+   before and read just after): K3 to the RCU's output, K4 and K5 to their
+   modules' chain with ``F.interpolate`` as the upsample, since the served
+   bf16 modules and K4's and K5's bf16 routes share the port's upsample
+   kernel; the CUDA launches of one call of each op,
    from a profile (K5 in bf16 at most three); K5's gradient; times beside the plain version, the
-   served modules' own cuDNN chain and the bound; K3's launch plan against
-   its neighbouring plans at both decoders' map sizes;
+   modules' own chain (cuDNN convs, ``F.interpolate``) and the bound; K3's
+   launch plan against its neighbouring plans at both decoders' map sizes;
 4. eight served configurations at full width and depth, weights from a
    numpy seed, 1080x1920 uint8 requests at batch 1 and 2, with and
    without the occupancy grid, through ``make_serving_fn``'s CUDA graphs
@@ -48,8 +58,10 @@ Phases, each of which fails the run on any error:
    frames, ``calibrate_batchnorm``). For each, the launch counts are set to 0 just before its
    requests and read just after; the graphs' kernel nodes, read through
    libcuda's graph API, times their replays prove the path ran through its
-   kernels; the graphs' outputs are held to the eager path's on the same
-   frames; the card's f32 outputs are held to the same request served on
+   kernels (on BEiT-L/512 and the flagship also the upsample, 6 nodes a
+   graph and no bilinear resize left to ``F.interpolate``); the graphs'
+   outputs are held to the eager path's on the same frames; the card's f32
+   outputs are held to the same request served on
    the CPU; then bf16 latency per request, graph against eager, with a
    device-time profile of each, the host calls a request, the graph's
    nodes, capture time and memory pool, the copy out of the pool and the
@@ -112,7 +124,8 @@ Phases, each of which fails the run on any error:
    through; step times, a profile of one step, peak memory;
 9. deployment and baselines, on the same tree: ``cli/export.py`` of the
    flagship from a reference-layout ``.pth`` (dynamic batch; K1 is a
-   ``soccdpt::window_attention`` node of the program, 12 of them), run by
+   ``soccdpt::window_attention`` node of the program, 12 of them, the
+   upsample a ``soccdpt::upsample2x`` node, 6 of them), run by
    ``python -m soccdpt_torch.cli.run_exported`` in fresh processes at
    batch 1 and 2, and loaded here at batch 1 and 2 against the eager model
    (bit for bit, or within the ladder of tests/test_composition_oracle.py),
@@ -890,6 +903,116 @@ def phase_k2(torch, ss, problems, _build):
 
 
 # ---------------------------------------------------------------------------
+# The decoder's upsample: bf16 2x bilinear, align_corners=True
+# ---------------------------------------------------------------------------
+
+# (call, map size, channels) of the six upsamples a batch-6 request of each
+# benchmark cell makes: the four refinenets, the depth head after conv1, the
+# seg head after conv2
+UPSAMPLE_CALLS = {
+    "beitl512.rig6.20hz.grid": [("refinenet4", 16, 256), ("refinenet3", 32, 256),
+                                ("refinenet2", 64, 256), ("refinenet1", 128, 256),
+                                ("depth_head", 256, 128), ("seg_head", 256, 3)],
+    "swin2t.backlog.b6.grid": [("refinenet4", 8, 256), ("refinenet3", 16, 256),
+                               ("refinenet2", 32, 256), ("refinenet1", 64, 256),
+                               ("depth_head", 128, 128), ("seg_head", 128, 3)],
+}
+UPSAMPLE_BATCH = 6
+# the kernel rounds aten's f32 blend once, as aten does: bit for bit but for
+# a rare step where the two contract the blend's products differently
+UPSAMPLE_BF16_STEPS = 1
+
+
+def bf16_steps(torch, got, want):
+    """(largest distance in bf16 steps, share of elements bit for bit): the
+    bit patterns as integers in the order of their values, +0 and -0 both 0."""
+    def ordered(t):
+        b = t.contiguous().view(torch.int16).int()
+        return torch.where(b < 0, -(b & 0x7FFF), b)
+
+    d = (ordered(got) - ordered(want)).abs()
+    return int(d.max()), float((d == 0).float().mean())
+
+
+def phase_upsample(torch, F, _build):
+    """The upsample op on the card at ``UPSAMPLE_CALLS``: one launch a call
+    (the count set to 0 first) within ``UPSAMPLE_BF16_STEPS`` of
+    ``upsample2x_plain``; then kernel, plain and library ms by CUDA-graph
+    replay beside the bytes bound, summed a request. The first cell's request
+    is the entry's; the second's sits beside it."""
+    from soccdpt_torch.kernels import upsample as up
+
+    up.upsample2x.launches = 0
+    calls, cells, worst, least_equal = [], {}, 0, 1.0
+    with torch.no_grad():
+        for cell, table in UPSAMPLE_CALLS.items():
+            tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0}
+            for i, (call, n, C) in enumerate(table):
+                B = UPSAMPLE_BATCH
+                g = torch.Generator(device="cuda").manual_seed(500 + i)
+                x = (torch.randn(B, n, n, C, device="cuda", generator=g) * 3).bfloat16()
+                before = up.upsample2x.launches
+                got = up.upsample2x(x)
+                torch.cuda.synchronize()
+                if up.upsample2x.launches - before != 1:
+                    fail(f"upsample {cell} {call}: the op launched the kernel "
+                         f"{up.upsample2x.launches - before} times")
+                steps, same = bf16_steps(torch, got, up.upsample2x_plain(x))
+                worst, least_equal = max(worst, steps), min(least_equal, same)
+                if got.shape != (B, 2 * n, 2 * n, C) or steps > UPSAMPLE_BF16_STEPS:
+                    fail(f"upsample {cell} {call} {[B, n, n, C]}: {tuple(got.shape)}, {steps} bf16 "
+                         f"steps from F.interpolate")
+                x_nchw = x.permute(0, 3, 1, 2).contiguous()
+                row = {"cell": cell, "call": call, "shape": [B, n, n, C], "max_bf16_steps": steps,
+                       "bit_equal_share": same,
+                       "ms": cuda_ms(torch, lambda: up.upsample2x(x)),
+                       "plain_ms": cuda_ms(torch, lambda: up.upsample2x_plain(x)),
+                       "library_ms": cuda_ms(torch, lambda: F.interpolate(
+                           x_nchw, size=(2 * n, 2 * n), mode="bilinear", align_corners=True)),
+                       "bytes": up.upsample_bytes(B, n, n, C)}
+                row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+                row["roofline_share"] = row["bound_ms"] / row["ms"]
+                calls.append(row)
+                for k in tot:
+                    tot[k] += row[k]
+                log(f"upsample {cell} {call} {row['shape']}: bit for bit {same:.6f}, at most "
+                    f"{steps} step(s); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
+                    f"NCHW {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+                    f"({row['roofline_share']:.1%})")
+                del x, x_nchw, got
+            tot["bound_ms"] = tot["bytes"] / HBM_BYTES_PER_S * 1e3
+            tot["roofline_share"] = tot["bound_ms"] / tot["ms"]
+            cells[cell] = tot
+            log(f"upsample, a request of {cell}: kernel {tot['ms']:.4f} ms, plain "
+                f"{tot['plain_ms']:.4f}, NCHW {tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f} "
+                f"ms ({tot['roofline_share']:.1%} of the roofline)")
+        torch.cuda.empty_cache()
+        x = torch.randn(UPSAMPLE_BATCH, 64, 64, 256, device="cuda").bfloat16()
+        per_call = graph_launches(torch, lambda: up.upsample2x(x))
+    ptxas = [line.strip() for line in _build.build_log("upsample").splitlines()
+             if "registers" in line or "spill" in line]
+    launches = up.upsample2x.launches
+    RECORD["upsample"] = {"calls": calls, "requests": cells, "ptxas": ptxas}
+    (rig, rig_t), (backlog, backlog_t) = cells.items()
+    return {
+        "name": "upsample2x", "route": "cuda", "source": "soccdpt_torch/csrc/upsample.cuh",
+        "replaces": "none: soccdpt_tpu/ops/resize.py's interpolation matrices, which XLA "
+                    "multiplies", "path": "main",
+        "max_bf16_steps": worst, "least_bit_equal_share": least_equal,
+        "tolerance": f"{UPSAMPLE_BF16_STEPS} bf16 step of upsample2x_plain (F.interpolate)",
+        **{k: rig_t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "roofline_share")},
+        "bound_by": "bytes",
+        "timed": f"the six upsamples of a batch-6 request of {rig}, by CUDA-graph replay",
+        "plain": "F.interpolate on the NHWC tensor's NCHW view: aten's NHWC kernel, which the "
+                 "served decoder ran before this kernel",
+        "library": "F.interpolate on a contiguous NCHW copy: aten's NCHW kernel",
+        backlog: {k: backlog_t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                            "roofline_share")},
+        "launches_in_phase": launches, "cuda_launches_per_call": per_call, "ptxas": ptxas,
+    }
+
+
+# ---------------------------------------------------------------------------
 # K3, K4, K5: the decoder convolutions, standalone ops as in the JAX package
 # ---------------------------------------------------------------------------
 
@@ -993,10 +1116,9 @@ def decoder_weights(mods):
 
 def live_decoder(torch, dtype):
     """One served 1080p request of the flagship V3 (seed 0) in ``dtype``,
-    with forward hooks on the depth DPT's residual conv units, on
-    ``refinenet1`` and on the depth head: (model, [(path, module, input,
-    output)] of the RCUs, refinenet1's (tail input, output), the head's
-    (input, output))."""
+    with forward hooks on the depth DPT's residual conv units and on the
+    depth head: (model, [(path, module, input, output)] of the RCUs,
+    refinenet1's tail input, the head's input)."""
     from soccdpt_torch.core.config import ModelConfig
     from soccdpt_torch.models.dpt import ResidualConvUnit
     from soccdpt_torch.models.soccdpt import build_model
@@ -1018,7 +1140,6 @@ def live_decoder(torch, dtype):
         if isinstance(mod, ResidualConvUnit):
             rcus.append((path, mod))
             handles.append(mod.register_forward_hook(keep(path)))
-    handles.append(dpt.refinenet1.register_forward_hook(keep("refinenet1")))
     handles.append(dpt.head.register_forward_hook(keep("head")))
     # eager: a hook inside a capture would keep tensors of the graph's pool
     make_serving_fn(cfg, model, compute_occ=False, graph=False)(frames_u8(torch, 1, 300))
@@ -1027,8 +1148,8 @@ def live_decoder(torch, dtype):
         h.remove()
     if len(rcus) != 7:
         fail(f"the flagship's depth decoder has {len(rcus)} residual conv units, expected 7")
-    tail = (seen["refinenet1.res_conv_unit2"][0], seen["refinenet1"][1])
-    return model, [(p, m, *seen[p]) for p, m in rcus], tail, seen["head"]
+    return (model, [(p, m, *seen[p]) for p, m in rcus], seen["refinenet1.res_conv_unit2"][0],
+            seen["head"][0])
 
 
 def decoder_kernels():
@@ -1041,30 +1162,39 @@ def decoder_kernels():
             "fused_head_tail": (fh.fused_head_tail, fh.fused_head_tail_plain)}
 
 
-def live_cases(torch, F, model, rcus, tail, head_io):
-    """(kernel, what, its arguments, the served module's output, the
-    module's own chain as a function of the input) for each live input."""
+def live_cases(torch, F, model, rcus, tail_in, head_in):
+    """(kernel, what, its arguments, the reference output, the module's own
+    chain as a function of the input) for each live input. An RCU's
+    reference is the served module's output. refinenet1's tail and the depth
+    head after conv1 are held to their modules' chain with ``F.interpolate``
+    as the upsample (``upsample2x_plain``): the served bf16 modules upsample
+    through the port's kernel, which K4's and K5's bf16 routes launch too,
+    so the reference and the library time stay apart from the code under
+    test. In f32 the chain is the served module's own computation. ``up``
+    swaps the chain's upsample (``served_chain_ms``)."""
+    from soccdpt_torch.kernels.upsample import upsample2x_plain
     from soccdpt_torch.models.layers import conv_nhwc
-    from soccdpt_torch.ops.resize import upsample2x_hw
 
     block, head = model.depth_net.refinenet1, model.depth_net.head
+    rcu2 = block.res_conv_unit2
 
-    def head_tail(m):  # DepthHead.forward after conv1
-        y = F.relu(conv_nhwc(head.conv2, upsample2x_hw(m, "bilinear", align_corners=True)))
+    def tail_chain(s, up=upsample2x_plain):  # FeatureFusionBlock.forward, no skip, no size
+        return up(conv_nhwc(block.out_conv, rcu2(s)))
+
+    def head_tail(m, up=upsample2x_plain):  # DepthHead.forward after conv1
+        y = F.relu(conv_nhwc(head.conv2, up(m)))
         return F.relu(conv_nhwc(head.conv3, y))[..., 0]
 
     with torch.no_grad():
-        mid = conv_nhwc(head.conv1, head_io[0])
+        mid = conv_nhwc(head.conv1, head_in)
+        tail_want, head_want = tail_chain(tail_in), head_tail(mid)
     cases = [("fused_rcu", path, (x, *decoder_weights([m.conv1, m.conv2])), y, m)
              for path, m, x, y in rcus]
-    rcu2 = block.res_conv_unit2
-    # refinenet1 called without a skip and without a size is exactly the tail
     cases.append(("fused_rcu_tail", "refinenet1 tail",
-                  (tail[0], *decoder_weights([rcu2.conv1, rcu2.conv2, block.out_conv])),
-                  tail[1], block))
+                  (tail_in, *decoder_weights([rcu2.conv1, rcu2.conv2, block.out_conv])),
+                  tail_want, tail_chain))
     cases.append(("fused_head_tail", "depth head after conv1",
-                  (mid, *decoder_weights([head.conv2, head.conv3])), head_io[1][..., 0],
-                  head_tail))
+                  (mid, *decoder_weights([head.conv2, head.conv3])), head_want, head_tail))
     return cases
 
 
@@ -1104,6 +1234,21 @@ def time_calls(torch, kernels, calls, label):
                 f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}: {tot['flops'] / 1e9:.2f} GFLOP, "
                 f"{tot['bytes'] / 1e6:.1f} MB): {tot['flops'] / tot['ms'] / 1e9:.2f} TFLOP/s, "
                 f"{tot['bound_ms'] / tot['ms']:.1%} of the roofline")
+    return out
+
+
+def served_chain_ms(torch, calls):
+    """ms of K4's and K5's modules as the served bf16 decoder runs them now:
+    their chain with ``ops/resize.upsample2x_hw``, which sends the upsample
+    to the port's kernel, summed per kernel over ``calls``."""
+    from soccdpt_torch.ops.resize import upsample2x_hw
+
+    out = {}
+    with torch.no_grad():
+        for name, args, library, count in calls:
+            if name in ("fused_rcu_tail", "fused_head_tail"):
+                out[name] = out.get(name, 0.0) + count * cuda_ms(
+                    torch, lambda: library(args[0], up=upsample2x_hw))
     return out
 
 
@@ -1239,7 +1384,8 @@ def graph_launches(torch, fn):
 # the kernels whose launches a served graph holds, by a part of their name
 GRAPH_KERNEL_NAMES = {"window_attention": "window_attention_kernel",
                       "global_attention": "global_attention_kernel",
-                      "segment_sum": "segment_sum_kernel"}
+                      "segment_sum": "segment_sum_kernel",
+                      "upsample2x": "upsample2x_bf16"}
 CU_GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
 
 
@@ -1368,10 +1514,11 @@ def phase_decoder(torch, F, sass):
     # --- (b) the live flagship decoder: each kernel against the served
     # modules' own outputs, on their own weights, counts from 0 --------------
     live, grad, timed, beit, per_call, by_op, planner = {}, None, None, None, {}, {}, None
+    served = None
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        model, rcus, tail, head_io = live_decoder(torch, dtype)
-        cases = live_cases(torch, F, model, rcus, tail, head_io)
+        model, rcus, tail_in, head_in = live_decoder(torch, dtype)
+        cases = live_cases(torch, F, model, rcus, tail_in, head_in)
         for fn, _ in kernels.values():
             fn.launches = 0
         with torch.no_grad():
@@ -1379,7 +1526,7 @@ def phase_decoder(torch, F, sass):
         torch.cuda.synchronize()
         live[dname] = {name: fn.launches for name, (fn, _) in kernels.items()}
         for (name, what, args, want, _), got in zip(cases, outs):
-            record(name, got, want, args[0].shape, f"live {what}, against the served module",
+            record(name, got, want, args[0].shape, f"live {what}, against the module's chain",
                    dname)
         with torch.no_grad():
             per_call[dname], by_op[dname] = {}, {}
@@ -1392,12 +1539,15 @@ def phase_decoder(torch, F, sass):
         if dtype == torch.float32:
             grad = k5_gradient(torch, kernels["fused_head_tail"], cases[-1][2])
         else:
-            timed = time_calls(torch, kernels, [(n, a, lib, 1) for n, _, a, _, lib in cases],
-                               "live flagship decoder")
+            flagship_calls = [(n, a, lib, 1) for n, _, a, _, lib in cases]
+            timed = time_calls(torch, kernels, flagship_calls, "live flagship decoder")
             beit = time_calls(torch, kernels, beit_calls(torch, cases),
                               "dpt_beit_large_512's decoder shapes")
+            served = {"flagship": served_chain_ms(torch, flagship_calls),
+                      "beit_large_batch1": served_chain_ms(torch, beit_calls(torch, cases))}
+            log(f"K4's and K5's modules as served, the port's upsample in the chain: {served} ms")
             planner = plan_check(torch, cases[0][2][1:])
-        del model, rcus, tail, head_io, cases, outs
+        del model, rcus, tail_in, head_in, cases, outs
         torch.cuda.empty_cache()
     if per_call["bfloat16"]["fused_head_tail"] > 3:
         fail(f"a bf16 K5 call made {per_call['bfloat16']['fused_head_tail']} CUDA launches, "
@@ -1408,6 +1558,7 @@ def phase_decoder(torch, F, sass):
             fail(f"{name} was launched no time on the live decoder")
     RECORD["decoder"] = {"checks": checks, "live_launches": live, "k5_gradient": grad,
                          "timed_flagship_bf16": timed, "timed_beit_large_bf16": beit,
+                         "served_chain_ms": served,
                          "cuda_launches_per_call": per_call, "device_us_by_operation": by_op,
                          "sass": sass,
                          "plan_check_bf16": planner}
@@ -1428,9 +1579,13 @@ def phase_decoder(torch, F, sass):
             **{k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
             "roofline_share": t["bound_ms"] / t["ms"],
             "timed": f"{what} of one bf16 batch-1 flagship forward, on its live inputs",
-            "library": "the served modules' own chain, bf16 NHWC (cuDNN convs, F.interpolate)",
+            "library": "the modules' own chain, bf16 NHWC (cuDNN convs, F.interpolate)",
             "beit_large_batch1": {k: beit[name][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            **({"served_chain_ms": served["flagship"][name],
+                "served_chain_ms_beit_large_batch1": served["beit_large_batch1"][name],
+                "served_chain": "the module's chain with the port's upsample, as the served "
+                                "bf16 decoder runs it"} if name in served["flagship"] else {}),
             "launches": sum(counts[name] for counts in live.values()),
             "launches_by_path": {f"decoder_live_{d}": counts[name] for d, counts in live.items()},
             "cuda_launches_per_call": {d: counts[name] for d, counts in per_call.items()},
@@ -1470,10 +1625,14 @@ def k5_gradient(torch, k5, args):
 
 # launches per request of each attention kernel; K2 runs once per grid request
 SERVED = {
+    # the two served configurations of the benchmark: their decoder's and
+    # heads' six bilinear resizes are all 2x and take the upsample kernel
     "swin": {"model_type": "dpt_swin2_tiny_256", "version": 3, "parity_batch": 2,
-             "latency_reps": 10, "per_request": {"window_attention": 12, "global_attention": 0}},
+             "latency_reps": 10,
+             "per_request": {"window_attention": 12, "global_attention": 0, "upsample2x": 6}},
     "beit": {"model_type": "dpt_beit_large_512", "version": 3, "parity_batch": 1,
-             "latency_reps": 10, "per_request": {"window_attention": 0, "global_attention": 24}},
+             "latency_reps": 10,
+             "per_request": {"window_attention": 0, "global_attention": 24, "upsample2x": 6}},
     # SOccDPT V1: two whole DPTs, each with its own Swin-V2 trunk
     "swin_v1": {"model_type": "dpt_swin2_tiny_256", "version": 1, "parity_batch": 2,
                 "latency_reps": 10,
@@ -1707,6 +1866,7 @@ def phase_serving(torch, card, label):
     from soccdpt_torch.kernels import global_attention as ga
     from soccdpt_torch.kernels import segment_sum as ss
     from soccdpt_torch.kernels import window_attention as wa
+    from soccdpt_torch.kernels.upsample import upsample2x
     from soccdpt_torch.models.soccdpt import SOccDPT_versions, build_model
     from soccdpt_torch.ops.geometry import occupancy_slots, rotate_points
     from soccdpt_torch.serving import GraphedFunction, make_serving_fn
@@ -1715,7 +1875,8 @@ def phase_serving(torch, card, label):
     spec = SERVED[label]
     record = RECORD.setdefault(label, {"model_type": spec["model_type"]})
     counters = {"window_attention": wa.window_attention,
-                "global_attention": ga.global_attention, "segment_sum": ss.segment_sum}
+                "global_attention": ga.global_attention, "segment_sum": ss.segment_sum,
+                "upsample2x": upsample2x}
     cfg = ModelConfig(model_type=spec["model_type"], version=spec["version"])
     t0 = time.perf_counter()
     base = build_model(cfg, device="cuda", seed=0)
@@ -1754,6 +1915,7 @@ def phase_serving(torch, card, label):
     requests = 2
     for fn in counters.values():
         fn.launches = 0
+    upsample2x.fallbacks = 0
     outs = {}
     t0 = time.perf_counter()
     for B, occ in runs:
@@ -1762,6 +1924,9 @@ def phase_serving(torch, card, label):
     torch.cuda.synchronize()
     main_path_s = time.perf_counter() - t0
     ticks = {name: fn.launches for name, fn in counters.items()}
+    # bilinear align_corners=True resizes the graphs' warm-ups and captures
+    # left to F.interpolate (a replay runs no Python)
+    fallbacks = upsample2x.fallbacks
     nodes, replayed, census = graphed_launches(
         torch, {f"occ={occ}": fn for occ, fn in serve.items()}, counters)
     # a wrapper ticks at a graph's eager warm-up, which launches, and at its
@@ -1774,10 +1939,14 @@ def phase_serving(torch, card, label):
     graphs_with["segment_sum"] = sum(occ for _, occ in runs)
     record["main_path"] = {"requests": forwards, "seconds": main_path_s, "wrapper_counts": ticks,
                            "graph_kernel_nodes": nodes, "replayed": replayed,
-                           "launched": launches, "graphs": census}
+                           "launched": launches, "graphs": census,
+                           "upsample_fallbacks_at_capture": fallbacks}
     log(f"{label} main path: {forwards} graph requests in {main_path_s:.1f} s (captures "
         f"included); kernel nodes {nodes}, replayed {replayed}, launched {launches} "
-        f"(wrapper counts {ticks})")
+        f"(wrapper counts {ticks}); bilinear resizes left to F.interpolate at warm-up and "
+        f"capture {fallbacks}")
+    if "upsample2x" in per_graph and fallbacks:
+        fail(f"{label}: {fallbacks} bilinear align_corners=True resizes left the upsample kernel")
     for name, n in per_graph.items():
         want_nodes = n * graphs_with[name]
         want_replayed = n * requests * graphs_with[name]
@@ -1891,7 +2060,8 @@ def phase_serving(torch, card, label):
     # counted twice through the operator that launched it
     device_ms = sum(us for _, us, _ in rows) / 1e3
     record["served_kernel_device_ms_b1_occ"] = {
-        name: sum(us for k, us, _ in rows if f"{name}_kernel" in k) / 1e3 for name in counters}
+        name: sum(us for k, us, _ in rows if GRAPH_KERNEL_NAMES[name] in k) / 1e3
+        for name in counters}
     log(f"{label}, in the served request: {record['served_kernel_device_ms_b1_occ']} ms of "
         f"device time")
     record["profile_b1_occ_us_per_request"] = [
@@ -3396,8 +3566,10 @@ def phase_train_eval_clis(torch, card, tmp, tree):
 
 DEPLOY_FLAGSHIP, DEPLOY_HYBRID = "dpt_swin2_tiny_256", "dpt_hybrid_384"
 # kernel launches of one forward of each exported program
-DEPLOY_PER_FORWARD = {DEPLOY_FLAGSHIP: {"window_attention": 12, "global_attention": 0},
-                      DEPLOY_HYBRID: {"window_attention": 0, "global_attention": 12}}
+DEPLOY_PER_FORWARD = {DEPLOY_FLAGSHIP: {"window_attention": 12, "global_attention": 0,
+                                       "upsample2x": 6},
+                      DEPLOY_HYBRID: {"window_attention": 0, "global_attention": 12,
+                                      "upsample2x": 6}}
 DEPLOY_RUN_ITERS = 50  # forwards behind run_exported's frames/s line
 DEPLOY_REPS = 20  # forwards whose wall is timed, median
 # the program against the eager model, should they not be equal bit for bit:
@@ -4373,7 +4545,8 @@ def main():
         seconds = _build.build_all()
         log(f"kernels built: {seconds}")
         for name in ("window_attention", "segment_sum", "global_attention",
-                     "global_attention_bwd", "fused_rcu", "fused_fusion", "fused_head"):
+                     "global_attention_bwd", "fused_rcu", "fused_fusion", "fused_head",
+                     "upsample"):
             for line in _build.build_log(name).splitlines():
                 if "spill" in line and " 0 bytes spill stores" not in line:
                     log(f"  ptxas {name}: {line.strip()}")
@@ -4387,6 +4560,8 @@ def main():
         k6 = phase_k6(torch, F, ga, sass)
     with phase("K7 against its plain version"):
         k7 = phase_k7(torch, F, ga, sass)
+    with phase("the decoder's upsample against its plain version"):
+        ku = phase_upsample(torch, F, _build)
     with phase("K3, K4, K5 against their plain versions and the live decoder"):
         k3, k4, k5 = phase_decoder(torch, F, sass)
     torch.cuda.empty_cache()
@@ -4455,12 +4630,13 @@ def main():
             fail(f"{name} was launched no time on {path}")
     del served_problem
     # each kernel's time inside a served request, from the profile of the
-    # configuration whose attention it is (K2: the flagship's), and inside a
-    # training step
-    served_in = {"window_attention": "swin", "segment_sum": "swin", "global_attention": "beit"}
+    # configuration whose attention it is (K2: the flagship's; the upsample:
+    # BEiT-large's, the rig's configuration), and inside a training step
+    served_in = {"window_attention": "swin", "segment_sum": "swin", "global_attention": "beit",
+                 "upsample2x": "beit"}
     trained_in = {"window_attention": "train_swin", "global_attention": "train_beit",
                   "global_attention_backward": "train_beit"}
-    for k in (k1, k2, k6, k7):
+    for k in (k1, k2, k6, k7, ku):
         name = k["name"]
         by_path = {path: counts.get(name, 0) for path, counts in path_launches.items()}
         k["path"] = "main"
@@ -4478,7 +4654,7 @@ def main():
     for k in (k3, k4, k5):
         if k["launches"] < 1:
             fail(f"{k['name']} was launched no time in its phase")
-    kernels = [k1, k2, k3, k4, k5, k6, k7]
+    kernels = [k1, k2, k3, k4, k5, k6, k7, ku]
     RECORD.update({"device": kind, "nvidia_smi": card, "kernels": kernels,
                    "build_seconds": seconds, "phase_seconds": PHASE_SECONDS,
                    "seconds": time.perf_counter() - t_start})

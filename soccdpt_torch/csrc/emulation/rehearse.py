@@ -18,8 +18,9 @@ through the emulated library:
   ``window_attention_plain`` at the bf16 bound (atol 5e-2), and a second
   call to the same bits;
 * ``head``: K5 (``namespace wghead`` of ``csrc/fused_head.cu``, with
-  ``csrc/conv_wgmma.cuh`` and ``csrc/upsample.cuh``) through
-  ``kernels/fused_head.py``'s ``_launch``: prepare, upsample, head conv,
+  ``csrc/conv_wgmma.cuh``, and all of ``csrc/upsample.cu`` with
+  ``csrc/upsample.cuh``) through ``kernels/fused_head.py``'s ``_launch``:
+  prepare, upsample, head conv,
   against ``fused_head_tail_plain`` at the decoder's bf16 bound (2e-2 of
   the largest value plus 2e-2 relative).
 
@@ -135,8 +136,11 @@ def _emulated(code):
 
 
 def _slice(name, namespace, entries):
-    """A source's namespace and the C entries named, rewritten."""
+    """A source's namespace and the C entries named, rewritten; with no
+    namespace the whole source, whose headers the unit already includes."""
     s = (CSRC / name).read_text()
+    if namespace is None:
+        return _emulated(re.sub(r'#include "[^"]*"\n', "", s))
     end = f"}}  // namespace {namespace}"
     kern = s[s.index(f"namespace {namespace} {{"):s.index(end) + len(end)]
     funcs = [re.search(rf"(int {e}\(.*?\n}}\n)", s, flags=re.S).group(1) for e in entries]
@@ -154,7 +158,8 @@ ROUTES = {
                 ["soccdpt_window_attention_bf16"], ["attention_wgmma.cuh"])],
     "head": [("fused_head", "fused_head.cu", "wghead",
               ["soccdpt_prepare_head_bf16", "soccdpt_head_conv_bf16"],
-              ["upsample.cuh", "conv_wgmma.cuh"])],
+              ["upsample.cuh", "conv_wgmma.cuh"]),
+             ("upsample", "upsample.cu", None, [], ["upsample.cuh"])],
 }
 
 

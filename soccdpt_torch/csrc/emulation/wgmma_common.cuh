@@ -82,7 +82,11 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   u += 0x7fff + ((u >> 16) & 1);
   return {(uint16_t)(u >> 16)};
 }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) { return __float2bfloat16(f); }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {__float2bfloat16(a), __float2bfloat16(b)}; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
 inline float2 __bfloat1622float2(__nv_bfloat162 v) { return {__bfloat162float(v.x), __bfloat162float(v.y)}; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 

@@ -19,11 +19,11 @@
 // preparation, conv1 and conv2 as in K3 (fused_rcu.cu), conv2's epilogue
 // storing
 // m = bf16(s + conv + b2); the 1x1 conv, the same kernel with one tap and
-// + bo in its epilogue; then upsample2x_bf16 (upsample.cuh), each output
-// pixel blended from four neighbours with the clamped indices of Lerp, so
-// nothing outside the image is read. Entries soccdpt_prepare_bf16 and
-// soccdpt_conv_bf16 (conv_wgmma_entries.cuh), and soccdpt_upsample2x_bf16
-// (upsample.cuh).
+// + bo in its epilogue; then the decoder's upsample (upsample.cuh, launched
+// from its own library, upsample.cu), each output pixel blended from four
+// neighbours with the clamped indices of Lerp, so nothing outside the image
+// is read. Entries soccdpt_prepare_bf16 and soccdpt_conv_bf16
+// (conv_wgmma_entries.cuh).
 //
 // f32, on CUDA cores (conv_common.cuh): one block of 256 threads per
 // (image, TH x TW tile of m). It computes, all in shared memory: mid over

@@ -16,15 +16,15 @@
 // bf16, on the tensor cores: three launches. The preparation
 // (conv_wgmma.cuh, prepare_kernel: w2 to bf16 [tap][Ci][Cw], Cw = Cm
 // rounded up to a multiple of 8 with zero columns, and b2, w3, b3 to
-// bf16-rounded f32 rows); the upsample pass (upsample.cuh), u to bf16 in a
-// scratch tensor; then the 3x3 conv Ci -> Cm as conv_wgmma.cuh's implicit
-// GEMM over u, whose TMA boxes' zero fill is the padding at 2H x 2W, with
+// bf16-rounded f32 rows); the decoder's upsample pass (upsample.cuh, from
+// its own library, upsample.cu), u to bf16 in a scratch tensor; then the
+// 3x3 conv Ci -> Cm as conv_wgmma.cuh's implicit GEMM over u, whose TMA
+// boxes' zero fill is the padding at 2H x 2W, with
 // the head epilogue (EPI_HEAD): relu(bf16(acc + b2)), the 1x1 conv as a
 // sum over the four threads of a quad and over the N tiles the CTA walks
 // (Cm > BN), relu(z + b3), one bf16 value a pixel. The tile comes from
 // kernels/_conv.py::plan_head (HEAD_TILES below). Entries
-// soccdpt_prepare_head_bf16, soccdpt_upsample2x_bf16 (upsample.cuh) and
-// soccdpt_head_conv_bf16.
+// soccdpt_prepare_head_bf16 and soccdpt_head_conv_bf16.
 //
 // f32, on CUDA cores (conv_common.cuh): one block of 256 threads per
 // (image, 16 x 16 tile of the output). It never writes u: for each chunk of

@@ -27,9 +27,8 @@ Bound on the H100: operations (the RCU's two 3x3 convs). Two routes:
 * bf16: five launches. The preparation of K3 (here of three weights);
   K3's two tensor-core convolutions, the second storing
   ``m = s + RCU(s)``; the same kernel as a 1x1 conv with the out-conv's
-  bias; then a hand-written upsample pass
-  (``upsample2x_bf16``) with the clamped neighbour indices of the f32
-  route. ``tile`` raises here.
+  bias; then the decoder's upsample kernel (``kernels/upsample.py``)
+  with the clamped neighbour indices of the f32 route. ``tile`` raises here.
 * f32: one launch on CUDA cores; everything between ``s`` and the output
   stays in shared memory; ``tile`` (8 or 4) fixes its square tile of ``s``.
 
@@ -45,7 +44,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, upsample
 from ._conv import (
     CO,
     EPI_BIAS,
@@ -123,11 +122,7 @@ def _launch_bf16(s, w1, b1, w2, b2, out_w, out_b):
     conv_bf16(lib, plan3, scratch, s, w1, b1, mid, EPI_CONV1)
     conv_bf16(lib, plan3, scratch, mid, w2, b2, m, EPI_RESIDUAL, residual=s)
     conv_bf16(lib, plan1, scratch, m, wo, bo, y, EPI_BIAS)
-    out = torch.empty((B, 2 * H, 2 * W, C), dtype=s.dtype, device=s.device)
-    rc = call(lib, "soccdpt_upsample2x_bf16", [y, out], [B, H, W, C],
-              torch.cuda.current_stream(s.device).cuda_stream)
-    _build.check(lib, rc, "upsample kernel")
-    return out
+    return upsample.launch(y)
 
 
 def _launch(s, w1, b1, w2, b2, out_w, out_b, tile):

@@ -20,10 +20,11 @@ Two routes, by dtype:
 * bf16, on the tensor cores: three CUDA launches. One prepares the call
   (``_conv.prepare_head_bf16``: w2 to bf16 in the kernel's layout, b2,
   w3 and b3 rounded to bf16, from the weights as they lie, any strides);
-  the upsample pass writes ``u`` in bf16 (``csrc/upsample.cuh``, K4's); the
-  3x3 conv runs as ``csrc/conv_wgmma.cuh``'s implicit GEMM over ``u``,
-  planned by ``_conv.plan_head``, with the head's epilogue (the ReLU, the
-  1x1 conv to one channel, its bias and the final ReLU) in registers.
+  the upsample pass writes ``u`` in bf16 (``kernels/upsample.py``, the
+  decoder's and K4's); the 3x3 conv runs as ``csrc/conv_wgmma.cuh``'s
+  implicit GEMM over ``u``, planned by ``_conv.plan_head``, with the
+  head's epilogue (the ReLU, the 1x1 conv to one channel, its bias and
+  the final ReLU) in registers.
 * f32: one launch on CUDA cores; the upsampled map never reaches device
   memory (the kernel blends the tile it convolves straight from ``x``
   into shared memory); f32 products, which the f32 bound (2e-5) needs.
@@ -41,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from . import _build
+from . import _build, upsample
 from ._conv import (
     activation,
     call,
@@ -98,9 +99,7 @@ def _launch_bf16(x, w2, b2, w3, b3):
     lib = _build.load("fused_head")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     w, vec = prepare_head_bf16(lib, x, w2, [b2, w3, b3])
-    u = torch.empty((B, 2 * H, 2 * W, Ci), dtype=x.dtype, device=x.device)
-    rc = call(lib, "soccdpt_upsample2x_bf16", [x, u], [B, H, W, Ci], stream)
-    _build.check(lib, rc, "upsample kernel")
+    u = upsample.launch(x)
     out = torch.empty((B, 2 * H, 2 * W), dtype=x.dtype, device=x.device)
     rc = call(lib, "soccdpt_head_conv_bf16", [u, w, vec, out],
               [B, 2 * H, 2 * W, Ci, Cm, head_columns(Cm), plan.config, plan.walk], stream)

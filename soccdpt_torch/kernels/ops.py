@@ -9,7 +9,9 @@ the package (``cli/run_exported.py``).
   the attention of every Swin-V2 block;
 * ``soccdpt::global_attention`` and ``soccdpt::global_attention_with_lse``
   are K6 (``kernels/global_attention.py``), the attention of every
-  ViT/BEiT block.
+  ViT/BEiT block;
+* ``soccdpt::upsample2x`` (``kernels/upsample.py``) is the DPT decoder's
+  and heads' bf16 2x bilinear upsample.
 
 On CUDA tensors each launches its hand-written kernel, whose library
 ``nvcc`` builds from ``soccdpt_torch/csrc/`` at the first launch; on CPU
@@ -20,12 +22,21 @@ from __future__ import annotations
 from typing import Dict
 
 from .global_attention import global_attention
+from .upsample import upsample2x
 from .window_attention import window_attention
 
 # the function whose ``launches`` counts each kernel's launches
-COUNTERS = {"window_attention": window_attention, "global_attention": global_attention}
+COUNTERS = {"window_attention": window_attention, "global_attention": global_attention,
+            "upsample2x": upsample2x}
 
 
 def launches() -> Dict[str, int]:
     """The kernels' launch counts so far."""
     return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def fallbacks() -> int:
+    """The card's bilinear ``align_corners=True`` resizes so far that did
+    not take the upsample kernel (``ops/resize.py``): beside
+    ``launches()["upsample2x"]``, the kernel's hit share."""
+    return upsample2x.fallbacks

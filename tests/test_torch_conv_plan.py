@@ -339,12 +339,14 @@ class _FakeHeadLib:
 
 @pytest.fixture
 def fake_head(monkeypatch):
-    from soccdpt_torch.kernels import _build
+    from soccdpt_torch.kernels import _build, upsample
 
     lib = _FakeHeadLib()
     monkeypatch.setattr(_build, "load", lambda name: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("Stream", (), {"cuda_stream": 0})())
+    # the upsample's band plan reads the card's SM count: an H100 SXM's
+    monkeypatch.setattr(upsample, "_sms", lambda device: 132)
     return lib
 
 

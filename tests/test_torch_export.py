@@ -2,7 +2,8 @@
 ``soccdpt_torch.cli.export`` (a ``torch.export`` program) and
 ``soccdpt_torch.cli.run_exported``, against ``soccdpt_tpu.cli.export``
 (serialized StableHLO) of the same reference-layout ``.pth``; and the
-``soccdpt::`` custom ops (K1, K6) that the program calls.
+``soccdpt::`` custom ops (K1, K6, the decoder's upsample) that the
+program calls.
 
 The ``.pth`` is written by ``chip_smoke.reference_state_dict`` from a
 port model drawn from a numpy seed, its depth head's last conv scaled as
@@ -131,6 +132,16 @@ def test_the_program_calls_the_window_attention_op(programs):
     assert not any("global_attention" in t or "softmax" in t for t in targets)
 
 
+def test_the_program_calls_the_upsample_op(programs):
+    """The decoder's four refinenets and both heads upsample through one
+    ``soccdpt::upsample2x`` node each, none through aten's bilinear
+    upsample: the program launches the kernel where it runs on the card."""
+    program = torch.export.load(programs[False][0])
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert targets.count("soccdpt.upsample2x.default") == 6
+    assert not any("upsample_bilinear2d" in t for t in targets)
+
+
 def test_a_fixed_batch_program_takes_that_batch_only(pth, tmp_path):
     path = export_model(MODEL, 3, str(tmp_path / "b1.pt2"), load=pth, batch=1, device="cpu")
     program = load_program(path, torch.device("cpu"))
@@ -152,7 +163,8 @@ def test_run_exported_in_a_fresh_process(programs, tmp_path):
     out = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=tmp_path,
                          timeout=300).stdout.splitlines()
     assert "outputs: (2, 64, 64) (2, 3, 64, 64)" in out
-    assert "kernel launches in one forward: window_attention 0, global_attention 0" in out
+    assert ("kernel launches in one forward: window_attention 0, global_attention 0, "
+            "upsample2x 0") in out
     assert f"saved {png}" in out and png.stat().st_size > 0
     assert out[-1].endswith("ms/forward)") and " Hz (" in out[-1]
     probe = ("import sys; from soccdpt_torch.cli import run_exported; "
@@ -209,7 +221,8 @@ def test_global_attention_ops_pass_opcheck_and_are_the_plain_version(dtype, bias
 
 
 def test_ops_module_registers_every_op_and_counts_launches():
-    for op in ("window_attention", "global_attention", "global_attention_with_lse"):
+    for op in ("window_attention", "global_attention", "global_attention_with_lse",
+               "upsample2x"):
         assert hasattr(torch.ops.soccdpt, op)
     before = ops.launches()
     torch.ops.soccdpt.window_attention(*_k1_args(torch.float32, False))
