@@ -4,14 +4,16 @@ A frozen copy of the architecture the configuration files describe,
 written with plain ``torch`` operations: no kernel, cache, graph or
 batching of the program, and nothing imported from it. It runs in f32
 (the harness turns TF32 off) or, as the control, with fp8 products
-(``precision.py``).
+(``precision.py``). A trunk family is a module of its own,
+``<family>.py``, found by the configuration's ``backbone.family``
+(``model.trunk_module``).
 """
 from __future__ import annotations
 
 import torch
 
 from . import geometry
-from .model import SOccDPTV3, preprocess
+from .model import SOccDPTV3, kernel_calls, preprocess, trunk_module
 
 
 def build(cfg: dict, state: dict, device) -> SOccDPTV3:

@@ -5,10 +5,15 @@ pyramid by MiDaS's readout ("project": the cls token concatenated to
 every patch token, Linear, GELU), 1x1 projections, a 4x and a 2x
 transposed conv and a stride-2 conv. Sizes come from the configuration
 file.
+
+The family ``beit``: ``TRUNK``, its weight rules (position tables wide
+enough that an attention that dropped its bias could not pass,
+LayerScale near its 0.1), its K6 launches (``k6_calls``) and a
+test-sized trunk (``TINY``).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -119,3 +124,35 @@ class BEiT(nn.Module):
                 h = L.conv(self.down2x, h)
             outs.append(h)
         return tuple(outs)
+
+
+TRUNK = BEiT
+
+# A test-sized trunk of the family, for the harness's CPU tests: the
+# program's model type, its (backbone, net_w, net_h) entry, and the
+# backbone as a configuration file gives it.
+TINY = ("dpt_beit_test_64", ("beittest_64", 64, 64), {
+    "family": "beit", "img_size": 64, "patch_size": 8, "embed_dim": 32, "depth": 4,
+    "num_heads": 2, "mlp_ratio": 4.0, "post_channels": [16, 32, 64, 128],
+    "hooks": [0, 1, 2, 3]})
+
+
+def weight_rule(mod: nn.Module, name: str, t: torch.Tensor):
+    """The relative-position tables and the LayerScale gammas; ``None``
+    for the rest."""
+    if name == "rel_pos_table":
+        return 0.0, 0.5
+    if name in ("gamma_1", "gamma_2"):
+        return 0.1, 0.02
+    return None
+
+
+def k6_calls(cfg: dict, batch: int) -> List[Tuple[int, int, int, int, int]]:
+    """(B, H, T, d, bias itemsize) of each block's K6 launch in a request
+    of ``batch`` frames at the configuration's net size: the patch tokens
+    and the cls, the f32 relative-position bias."""
+    b = cfg["backbone"]
+    net_w, net_h = cfg["net_size"]
+    p, heads = b["patch_size"], b["num_heads"]
+    tokens = (net_h // p) * (net_w // p) + 1
+    return [(batch, heads, tokens, b["embed_dim"] // heads, 4)] * b["depth"]

@@ -1,23 +1,61 @@
-"""SOccDPT V3, plain: a trunk, DPT's reassemble convs and fusion decoder
-(residual conv units, 1x1 out conv, bilinear upsampling with aligned
-corners), the depth head (conv, 2x up, conv, ReLU, 1x1 conv, ReLU) that
-also hands its fused features to the segmentation head (conv without
-bias, BatchNorm, ReLU, 1x1 conv, 2x up, sigmoid or scaled
-tanh). The parameters carry the program's names, so one state dict
-loads into both. It serves: eval mode only, dropout off.
+"""SOccDPT V3, plain: a trunk (its family's module, found by name),
+DPT's reassemble convs and fusion decoder (residual conv units, 1x1 out
+conv, bilinear upsampling with aligned corners), the depth head (conv,
+2x up, conv, ReLU, 1x1 conv, ReLU) that also hands its fused features to
+the segmentation head (conv without bias, BatchNorm, ReLU, 1x1 conv, 2x
+up, sigmoid or scaled tanh). The parameters carry the program's names,
+so one state dict loads into both. It serves: eval mode only, dropout
+off.
 """
 from __future__ import annotations
+
+import importlib
+from pathlib import Path
+from types import ModuleType
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from . import layers as L
-from .beit import BEiT
 from .precision import act_dtype
-from .swin2 import SwinV2
 
-TRUNKS = {"swin2": SwinV2, "beit": BEiT}
+HERE = Path(__file__).resolve().parent
+
+
+def trunk_module(cfg: dict) -> ModuleType:
+    """The module of the configuration's trunk family,
+    ``benchmark/reference/<family>.py``. It gives ``TRUNK``, the class of
+    a module built as ``TRUNK(backbone_cfg, (net_h, net_w))``, with
+    ``channels`` (four widths), whose forward takes NHWC images to four
+    NHWC maps; and it may
+    give ``weight_rule(mod, name, t)`` (``(mean, std)`` of a leaf, or
+    ``None`` for the shared rules), ``k1_calls(cfg, batch)`` and
+    ``k6_calls(cfg, batch)`` (one tuple a launch of a request, as
+    ``benchmark/work.py`` counts them), and ``TINY``, the test-sized trunk
+    that the harness's CPU tests shrink its cells to."""
+    family = cfg["backbone"]["family"]
+    path = HERE.relative_to(HERE.parents[1]) / f"{family}.py"
+    name, missing = f"{__package__}.{family}", f"no trunk family {family!r}: no {path}"
+    if not family.isidentifier():
+        raise FileNotFoundError(missing)
+    try:
+        module = importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name != name:
+            raise
+        raise FileNotFoundError(missing) from None
+    if not hasattr(module, "TRUNK"):
+        raise AttributeError(f"{path} gives no TRUNK")
+    return module
+
+
+def kernel_calls(cfg: dict, kernel: str, batch: int) -> Optional[list]:
+    """The trunk's ``<kernel>_calls(cfg, batch)`` at the configuration's
+    net size, or ``None`` where its family gives none."""
+    calls = getattr(trunk_module(cfg), f"{kernel}_calls", None)
+    return None if calls is None else calls(cfg, batch)
 
 
 class ResidualConvUnit(nn.Module):
@@ -79,8 +117,7 @@ class DepthNet(nn.Module):
     def __init__(self, cfg: dict):
         super().__init__()
         net_w, net_h = cfg["net_size"]
-        bcfg = cfg["backbone"]
-        self.backbone = TRUNKS[bcfg["family"]](bcfg, (net_h, net_w))
+        self.backbone = trunk_module(cfg).TRUNK(cfg["backbone"], (net_h, net_w))
         f = cfg["features"]
         for i, c in enumerate(self.backbone.channels):
             setattr(self, f"layer{i + 1}_rn", nn.Conv2d(c, f, 3, padding=1, bias=False))

@@ -1,13 +1,17 @@
 """Swin Transformer V2 trunk, plain: post-norm blocks, scaled-cosine
 window attention with a logit scale clamped at log 100, the log-spaced
 continuous position bias MLP (16 sigmoid), shifted windows with the
--100 mask, patch merging (reduction, then norm); stochastic depth is
+-100 mask, a stage padded up to whole windows (the padding a masked
+region of its own), patch merging (reduction, then norm); stochastic depth is
 off when serving. Sizes come from the configuration file.
+
+The family ``swin2``: ``TRUNK``, its weight rule (the logit scale near
+log 10), its K1 launches (``k1_calls``) and a test-sized trunk (``TINY``).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,18 +39,25 @@ def relative_coords_table(ws: int, pretrained: int) -> np.ndarray:
     return table.reshape(-1, 2).astype(np.float32)
 
 
-def shift_mask(res: int, ws: int, shift: int) -> Optional[np.ndarray]:
-    """(windows, N, N) additive mask of shifted windows: -100 between
-    tokens of different regions."""
-    if shift == 0:
+def shift_mask(res: int, ws: int, shift: int, padded: int) -> Optional[np.ndarray]:
+    """(windows, N, N) additive mask of shifted or padded windows: -100
+    between tokens of different regions; the padding is a region of its
+    own."""
+    if shift == 0 and padded == res:
         return None
-    img = np.zeros((res, res), np.int32)
-    cnt = 0
-    for hs in (slice(0, res - ws), slice(res - ws, res - shift), slice(res - shift, res)):
-        for wsl in (slice(0, res - ws), slice(res - ws, res - shift), slice(res - shift, res)):
-            img[hs, wsl] = cnt
-            cnt += 1
-    mw = img.reshape(res // ws, ws, res // ws, ws).transpose(0, 2, 1, 3).reshape(-1, ws * ws)
+    img = np.zeros((padded, padded), np.int32)
+    if shift:
+        cnt = 0
+        bands = (slice(0, padded - ws), slice(padded - ws, padded - shift),
+                 slice(padded - shift, padded))
+        for hs in bands:
+            for wsl in bands:
+                img[hs, wsl] = cnt
+                cnt += 1
+    img[res:, :] = -1
+    img[:, res:] = -1
+    n = padded // ws
+    mw = img.reshape(n, ws, n, ws).transpose(0, 2, 1, 3).reshape(-1, ws * ws)
     return np.where(mw[:, None, :] != mw[:, :, None], -100.0, 0.0).astype(np.float32)
 
 
@@ -95,6 +106,7 @@ class Block(nn.Module):
         self.ws = min(window, res)
         self.shift = self.ws // 2 if (shift and self.ws < res) else 0
         self.res = res
+        self.padded = math.ceil(res / self.ws) * self.ws  # whole windows
         self.attn = WindowAttention(dim, heads, self.ws, pretrained)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp_fc1 = nn.Linear(dim, int(dim * mlp_ratio))
@@ -103,16 +115,18 @@ class Block(nn.Module):
 
     def forward(self, x):
         B, R, _, C = x.shape
-        ws, s = self.ws, self.shift
-        h = torch.roll(x, shifts=(-s, -s), dims=(1, 2)) if s else x
-        win = h.reshape(B, R // ws, ws, R // ws, ws, C).permute(0, 1, 3, 2, 4, 5)
+        ws, s, P = self.ws, self.shift, self.padded
+        h = F.pad(x, (0, 0, 0, P - R, 0, P - R)) if P > R else x
+        h = torch.roll(h, shifts=(-s, -s), dims=(1, 2)) if s else h
+        win = h.reshape(B, P // ws, ws, P // ws, ws, C).permute(0, 1, 3, 2, 4, 5)
         win = win.reshape(-1, ws * ws, C)
-        m = shift_mask(R, ws, s)
+        m = shift_mask(R, ws, s, P)
         win = self.attn(win, None if m is None else torch.as_tensor(m, device=x.device))
-        h = win.reshape(B, R // ws, R // ws, ws, ws, C).permute(0, 1, 3, 2, 4, 5)
-        h = h.reshape(B, R, R, C)
+        h = win.reshape(B, P // ws, P // ws, ws, ws, C).permute(0, 1, 3, 2, 4, 5)
+        h = h.reshape(B, P, P, C)
         if s:
             h = torch.roll(h, shifts=(s, s), dims=(1, 2))
+        h = h[:, :R, :R]
         h = L.layer_norm(self.norm1, h)
         x = x + h
         h = L.linear(self.mlp_fc2, F.gelu(L.linear(self.mlp_fc1, x)))
@@ -165,3 +179,45 @@ class SwinV2(nn.Module):
             if i < len(depths) - 1:
                 x = getattr(self, f"downsample{i}")(x)
         return tuple(feats)
+
+
+TRUNK = SwinV2
+
+# A test-sized trunk of the family, for the harness's CPU tests: the
+# program's model type, its (backbone, net_w, net_h) entry, and the
+# backbone as a configuration file gives it.
+TINY = ("dpt_swin2_test_64", ("swin2test_64", 64, 64), {
+    "family": "swin2", "img_size": 64, "patch_size": 4, "embed_dim": 16,
+    "depths": [2, 2, 2, 2], "num_heads": [1, 2, 4, 8], "window_size": 4,
+    "pretrained_window_sizes": [0, 0, 0, 0], "mlp_ratio": 4.0, "drop_path_rate": 0.1,
+    "hooks": [1, 1, 1, 1]})
+
+
+def weight_rule(mod: nn.Module, name: str, t: torch.Tensor):
+    """The attention's logit scale near log 10; ``None`` for the rest."""
+    if name == "logit_scale":
+        return math.log(10.0), 0.05
+    return None
+
+
+def k1_calls(cfg: dict, batch: int) -> List[Tuple[int, int, int, int, int]]:
+    """(Bw, H, N, d, nW) of each block's K1 launch in a request of
+    ``batch`` frames, in block order, as the program runs the trunk at the
+    configuration's net size: stage i at the patch grid halved i times,
+    its window clamped to the stage, the stage padded up to whole windows;
+    the f32 (nW, N, N) mask where the block shifts (odd blocks whose
+    window is smaller than the stage) or pads."""
+    b = cfg["backbone"]
+    net_w, net_h = cfg["net_size"]
+    out = []
+    for i, depth in enumerate(b["depths"]):
+        h, w = (net_h // b["patch_size"]) >> i, (net_w // b["patch_size"]) >> i
+        ws = min(b["window_size"], h, w)
+        windows = math.ceil(h / ws) * math.ceil(w / ws)
+        padded = h % ws != 0 or w % ws != 0
+        heads = b["num_heads"][i]
+        d = b["embed_dim"] * 2**i // heads
+        for j in range(depth):
+            masked = padded or (j % 2 == 1 and ws < min(h, w))
+            out.append((batch * windows, heads, ws * ws, d, windows if masked else 0))
+    return out

@@ -23,55 +23,65 @@ def generator(seed: int, purpose: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed((int(seed) << 3) | purpose)
 
 
-def _rule(mod: nn.Module, name: str, t: torch.Tensor):
-    """(mean, std) of a leaf: fan-in-scaled kernels, norm scales near 1,
-    BEiT's LayerScale near its 0.1, position tables wide enough that an
-    attention that dropped its bias could not pass, small biases."""
+# affine norms: BatchNorm and InstanceNorm of any rank share _NormBase
+NORMS = (nn.LayerNorm, nn.GroupNorm, nn.RMSNorm, nn.modules.batchnorm._NormBase)
+
+
+def _rule(mod: nn.Module, name: str, t: torch.Tensor, family_rule):
+    """(mean, std) of a leaf: the trunk family's own rule where it gives
+    one, then fan-in-scaled kernels, affine norm scales near 1, running
+    variances near 1, small biases."""
+    if family_rule is not None:
+        rule = family_rule(mod, name, t)
+        if rule is not None:
+            return rule
     if name == "weight" and isinstance(mod, nn.ConvTranspose2d):
         return 0.0, 1.0 / math.sqrt(t.shape[0])
     if name == "weight" and isinstance(mod, (nn.Linear, nn.Conv2d)):
         return 0.0, 1.0 / math.sqrt(t[0].numel())
-    if name == "weight" and isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):
+    if name == "weight" and isinstance(mod, NORMS):
         return 1.0, 0.05
-    if name == "rel_pos_table":
-        return 0.0, 0.5
-    if name in ("gamma_1", "gamma_2"):
-        return 0.1, 0.02
-    if name == "logit_scale":
-        return math.log(10.0), 0.05
     if name == "running_var":
         return 1.0, 0.1
     return 0.0, 0.05
 
 
-def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """A state dict for configuration ``cfg`` under the program's names,
-    f32 on ``device``, drawn in one call and scaled leaf by leaf in a few
-    grouped ones; the file's ``weights`` entries set a leaf's mean and
-    standard deviation."""
+def weight_table(cfg: dict):
+    """The leaves of configuration ``cfg`` under the program's names, in
+    the order they are drawn: ``[(name, shape, mean, std)]`` of the
+    floating ones (the file's ``weights`` entries override the rules) and
+    ``{name: (shape, dtype)}`` of the integer ones."""
     with torch.device("meta"):
         skeleton = reference.SOccDPTV3(cfg)
-    names, shapes, means, stds, ints = [], [], [], [], {}
+    family_rule = getattr(reference.trunk_module(cfg), "weight_rule", None)
+    table, ints = [], {}
     for mpath, mod in skeleton.named_modules():
         leaves = list(mod.named_parameters(recurse=False)) + list(mod.named_buffers(recurse=False))
         for pname, t in leaves:
             full = f"{mpath}.{pname}" if mpath else pname
             if not t.is_floating_point():
-                ints[full] = torch.zeros(t.shape, dtype=t.dtype, device=device)
+                ints[full] = (t.shape, t.dtype)
                 continue
-            mean, std = _rule(mod, pname, t)
+            mean, std = _rule(mod, pname, t, family_rule)
             spec = cfg.get("weights", {}).get(full, {})
-            names.append(full)
-            shapes.append(t.shape)
-            means.append(float(spec.get("mean", mean)))
-            stds.append(float(spec.get("std", std)))
+            table.append((full, t.shape, float(spec.get("mean", mean)),
+                          float(spec.get("std", std))))
+    return table, ints
+
+
+def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    """A state dict for configuration ``cfg`` under the program's names,
+    f32 on ``device``, drawn in one call and scaled leaf by leaf in a few
+    grouped ones (``weight_table``)."""
+    table, ints = weight_table(cfg)
+    names, shapes, means, stds = zip(*table)
     sizes = [math.prod(s) for s in shapes]
     flat = torch.randn(sum(sizes), generator=generator(seed, WEIGHTS, device), device=device)
     parts = list(flat.split(sizes))
-    torch._foreach_mul_(parts, stds)
-    torch._foreach_add_(parts, means)
+    torch._foreach_mul_(parts, list(stds))
+    torch._foreach_add_(parts, list(means))
     state = {n: p.view(s) for n, p, s in zip(names, parts, shapes)}
-    state.update(ints)
+    state.update({n: torch.zeros(s, dtype=dt, device=device) for n, (s, dt) in ints.items()})
     return state
 
 

@@ -1,6 +1,7 @@
-"""The yardstick of the kernels: the chip's peaks, the bytes and operations
-each kernel's work needs at given shapes, and the calls a request makes
-at a configuration's sizes.
+"""The yardstick of the kernels: the chip's peaks and the bytes and
+operations each kernel's work needs at given shapes. The calls a request
+makes at a configuration's sizes are its trunk family's
+(``benchmark/reference/<family>.py``: ``k1_calls``, ``k6_calls``).
 
 The counts are those of ``chip_smoke.py`` (``k1_bytes_flops``,
 ``k6_bytes_flops``, ``k2_bytes``, ``bound``), copied
@@ -9,7 +10,7 @@ input byte read once, each output byte written once.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Tuple
 
 HBM_BYTES_PER_S = 3.35e12  # one H100 SXM, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, at the 700 W limit
@@ -31,7 +32,8 @@ def k1_bytes_flops(Bw: int, H: int, N: int, d: int, nW: int, itemsize: int):
 
 
 def k6_bytes_flops(B: int, H: int, T: int, d: int, itemsize: int, bias_itemsize: int):
-    """K6, global attention: q, k, v, the output and the (H, T, T) bias."""
+    """K6, global attention: q, k, v, the output and the (H, T, T) bias of
+    ``bias_itemsize`` bytes an element (0: a call without a bias)."""
     return 4 * B * H * T * d * itemsize + H * T * T * bias_itemsize, 4 * B * H * T * T * d
 
 
@@ -40,28 +42,3 @@ def k2_bytes(rows: int, kept: int, num_slots: int, C: int) -> int:
     values of the kept rows, ``num_slots`` rows of C f32 written (the
     whole grid, or the cells the kept rows reduce into)."""
     return rows * 4 + kept * C * 4 + num_slots * C * 4
-
-
-def swin2_windows(bcfg: dict, batch: int) -> List[Tuple[int, int, int, int, int]]:
-    """(Bw, H, N, d, nW) of each Swin-V2 block's K1 call, in block order:
-    stage i runs at the patch grid halved i times, its window clamped to
-    the stage, shifted (with a mask) in odd blocks when the window is
-    smaller than the stage."""
-    grid = bcfg["img_size"] // bcfg["patch_size"]
-    out = []
-    for i, depth in enumerate(bcfg["depths"]):
-        res = grid >> i
-        ws = min(bcfg["window_size"], res)
-        windows = (res // ws) ** 2
-        heads = bcfg["num_heads"][i]
-        d = bcfg["embed_dim"] * 2**i // heads
-        for j in range(depth):
-            shifted = j % 2 == 1 and ws < res
-            out.append((batch * windows, heads, ws * ws, d, windows if shifted else 0))
-    return out
-
-
-def beit_attention(bcfg: dict, batch: int) -> Tuple[int, int, int, int]:
-    """(B, H, T, d) of each BEiT block's K6 call: the patch tokens and the cls."""
-    g = bcfg["img_size"] // bcfg["patch_size"]
-    return batch, bcfg["num_heads"], g * g + 1, bcfg["embed_dim"] // bcfg["num_heads"]
