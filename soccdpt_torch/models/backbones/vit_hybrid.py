@@ -29,12 +29,22 @@ The ViT blocks are ``vit.TransformerBlock``: their attention is kernel K6
 carry the flax scope names (``stem_conv``, ``stage1_block0.gn2``,
 ``patch_embed_proj``, ``block7.qkv``, ``readout3.project``, ``down2x``),
 so ``weights.load_jax_variables`` maps one tree onto the other by name.
+
+Counters (``counts()``), read and reset like ``kernels.ops.launches()``:
+``group_norm_nhwc.calls`` counts GroupNorms run (52 a forward of
+``vitb_rn50_384``), ``standardized_weight.misses`` the kernels
+standardized rather than taken from the cache (none after the first
+forward without gradients). Both count Python calls: a CUDA graph counts
+once, at its capture, and its replays count nothing. There is no host
+span here: a served request is one graph replay, so a span around the
+stem would time its capture alone; the device time of the GroupNorms is
+read from the kernels' names in a profile instead.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, field
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -75,6 +85,7 @@ def standardized_weight(mod: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
         hit = mod.__dict__.get("_ws_cache")
         if hit is not None and hit[0] == key:
             return hit[1]
+    standardized_weight.misses += 1
     wf = w.float()
     var, mean = torch.var_mean(wf, dim=(1, 2, 3), unbiased=False, keepdim=True)
     out = ((wf - mean) * torch.rsqrt(var + WS_EPS)).to(dtype)
@@ -99,9 +110,20 @@ class WSConv(nn.Conv2d):
 
 def group_norm_nhwc(mod: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
     """GroupNorm in f32 on NHWC, cast back to x's dtype."""
+    group_norm_nhwc.calls += 1
     y = F.group_norm(x.permute(0, 3, 1, 2).float(), mod.num_groups, mod.weight, mod.bias,
                      mod.eps)
     return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+standardized_weight.misses = 0
+group_norm_nhwc.calls = 0
+
+
+def counts() -> Dict[str, int]:
+    """The trunk's counts so far: GroupNorm calls, weight standardizations."""
+    return {"group_norm": group_norm_nhwc.calls,
+            "standardized_weight": standardized_weight.misses}
 
 
 def _gn(channels: int) -> nn.GroupNorm:
