@@ -28,6 +28,12 @@ Phases, each of which fails the run on any error:
    NHWC kernel), the share bit for bit; then timed by CUDA-graph replay
    beside the plain version, aten's NCHW kernel on a contiguous NCHW copy
    (the library) and the bytes bound;
+2c. the 1080p geometry tail (``kernels/unproject_slots.py``, the
+   ``soccdpt::unproject_slots`` op) at a batch-6 request of each benchmark
+   configuration's camera and grid: one launch a call, the points bit for
+   bit and the slots within 1e-5 of the plain path on the card, then
+   kernel and plain ms (the aten composition it replaced), with slots and
+   with points alone, beside the bytes bound;
 3. the decoder kernels K3 (fused residual conv unit), K4 (fusion-block
    tail) and K5 (depth-head tail), standalone ops on no path of the
    system, as in the JAX package: against their plain versions at the
@@ -59,7 +65,9 @@ Phases, each of which fails the run on any error:
    requests and read just after; the graphs' kernel nodes, read through
    libcuda's graph API, times their replays prove the path ran through its
    kernels (on BEiT-L/512 and the flagship also the upsample, 6 nodes a
-   graph and no bilinear resize left to ``F.interpolate``); the graphs'
+   graph and no bilinear resize left to ``F.interpolate``; on every
+   configuration the geometry kernel, 1 node a graph and no tail left to
+   the plain path); the graphs'
    outputs are held to the eager path's on the same frames; the card's f32
    outputs are held to the same request served on
    the CPU; then bf16 latency per request, graph against eager, with a
@@ -125,7 +133,8 @@ Phases, each of which fails the run on any error:
 9. deployment and baselines, on the same tree: ``cli/export.py`` of the
    flagship from a reference-layout ``.pth`` (dynamic batch; K1 is a
    ``soccdpt::window_attention`` node of the program, 12 of them, the
-   upsample a ``soccdpt::upsample2x`` node, 6 of them), run by
+   upsample a ``soccdpt::upsample2x`` node, 6 of them; with points the
+   geometry tail one ``soccdpt::unproject_slots`` node), run by
    ``python -m soccdpt_torch.cli.run_exported`` in fresh processes at
    batch 1 and 2, and loaded here at batch 1 and 2 against the eager model
    (bit for bit, or within the ladder of tests/test_composition_oracle.py),
@@ -1013,6 +1022,110 @@ def phase_upsample(torch, F, _build):
 
 
 # ---------------------------------------------------------------------------
+# G: the 1080p geometry tail, inverse depth to points and slot keys
+# ---------------------------------------------------------------------------
+
+# the benchmark's configurations, whose camera and occupancy values the
+# phase takes (benchmark/configs/<name>.json); the first is the entry's
+GEOMETRY_CONFIGS = ("soccdpt-v3-swin2t256", "soccdpt-v3-beitl512", "soccdpt-v3-hybrid384")
+GEOMETRY_BATCH = 6
+# slots that may differ from the plain path's, where cuBLAS's rotation and the
+# kernel's FMA chain round a point onto the two sides of a cell's face
+GEOMETRY_SLOT_MISMATCH = 1e-5
+
+
+def geometry_configs(name):
+    """(camera, occupancy) of a benchmark configuration's file."""
+    from soccdpt_torch.core.config import CameraConfig, OccupancyConfig
+
+    cfg = json.loads((HERE / "benchmark" / "configs" / f"{name}.json").read_text())
+    o = cfg["occupancy"]
+    return CameraConfig(**cfg["camera"]), OccupancyConfig(
+        grid_size=tuple(o["grid_size"]), scale=tuple(o["scale"]), shift=tuple(o["shift"]),
+        pc_scale=tuple(o["pc_scale"]), pc_shift=tuple(o["pc_shift"]),
+        correction_angle=tuple(o["correction_angle"]))
+
+
+def phase_geometry(torch, _build):
+    """The geometry kernel (the ``soccdpt::unproject_slots`` op) at a batch-6
+    1080p request of each ``GEOMETRY_CONFIGS``: one launch a call (the count
+    set to 0 first), the points bit for bit and the slots within
+    ``GEOMETRY_SLOT_MISMATCH`` of the plain path on the card; then kernel
+    and plain ms (the composition the kernel replaced) by CUDA-graph replay,
+    with slots and with points alone, beside the bytes bound."""
+    from soccdpt_torch.kernels import unproject_slots as us
+    from soccdpt_torch.ops import geometry
+
+    us.unproject_slots.launches = 0
+    B, (H, W) = GEOMETRY_BATCH, (1080, 1920)
+    rows = {}
+    with torch.no_grad():
+        for i, name in enumerate(GEOMETRY_CONFIGS):
+            cam, occ = geometry_configs(name)
+            g = torch.Generator(device="cuda").manual_seed(600 + i)
+            inv = torch.rand(B, H, W, device="cuda", generator=g) * 0.6 + 0.1
+
+            def plain(slots=True):
+                points = geometry.camera_frame_points(inv, cam)
+                if not slots:
+                    return points
+                frame = geometry.occupancy_frame(points.reshape(B, -1, 3), occ)
+                return points, geometry.slot_keys(frame, occ)
+
+            before = us.unproject_slots.launches
+            points, slot = us.unproject_slots(inv, cam, occ, True)
+            torch.cuda.synchronize()
+            if us.unproject_slots.launches - before != 1:
+                fail(f"geometry {name}: the op launched the kernel "
+                     f"{us.unproject_slots.launches - before} times")
+            want_points, want_slot = plain()
+            equal = torch.equal(points.view(torch.int32), want_points.view(torch.int32))
+            mismatch = float((slot != want_slot).float().mean())
+            if not equal or mismatch > GEOMETRY_SLOT_MISMATCH:
+                fail(f"geometry {name}: points bit for bit {equal}, slots mismatched {mismatch}")
+            row = {"config": name, "shape": [B, H, W], "points_bit_equal": equal,
+                   "slot_mismatch_share": mismatch,
+                   "kept_share": float((want_slot >= 0).float().mean()),
+                   "ms": cuda_ms(torch, lambda: us.unproject_slots(inv, cam, occ, True)),
+                   "plain_ms": cuda_ms(torch, plain),
+                   "points_ms": cuda_ms(torch, lambda: us.unproject_slots(inv, cam, occ, False)),
+                   "plain_points_ms": cuda_ms(torch, lambda: plain(False)),
+                   "bytes": us.tail_bytes(B, H, W)}
+            row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+            row["roofline_share"] = row["bound_ms"] / row["ms"]
+            row["points_bound_ms"] = us.tail_bytes(B, H, W, slots=False) / HBM_BYTES_PER_S * 1e3
+            rows[name] = row
+            log(f"geometry {name} {row['shape']}: points bit for bit, slots mismatched "
+                f"{mismatch:.3g} (kept {row['kept_share']:.4f}); kernel {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+                f"({row['roofline_share']:.1%}); points alone {row['points_ms']:.4f} ms, plain "
+                f"{row['plain_points_ms']:.4f}, bound {row['points_bound_ms']:.4f}")
+            del points, slot, want_points, want_slot
+        per_call = graph_launches(torch, lambda: us.unproject_slots(inv, cam, occ, True))
+        del inv
+    torch.cuda.empty_cache()
+    ptxas = [line.strip() for line in _build.build_log("unproject_slots").splitlines()
+             if "registers" in line or "spill" in line]
+    RECORD["geometry"] = {"configs": rows, "ptxas": ptxas}
+    first, *others = rows.values()
+    columns = ("ms", "plain_ms", "bound_ms", "roofline_share")
+    return {
+        "name": "unproject_slots", "route": "cuda",
+        "source": "soccdpt_torch/csrc/unproject_slots.cu",
+        "replaces": "none: soccdpt_tpu/ops/geometry.py leaves the tail to XLA, which fuses it",
+        "path": "main", "points_bit_equal": all(r["points_bit_equal"] for r in rows.values()),
+        "largest_slot_mismatch_share": max(r["slot_mismatch_share"] for r in rows.values()),
+        "tolerance": f"points bit for bit, at most {GEOMETRY_SLOT_MISMATCH} of the slots",
+        **{k: first[k] for k in columns}, "bound_by": "bytes",
+        "timed": f"a batch-{B} 1080p request of {first['config']}, by CUDA-graph replay",
+        "plain": "the composition it replaced: camera_frame_points, occupancy_frame, slot_keys",
+        **{r["config"]: {k: r[k] for k in columns} for r in others},
+        "launches_in_phase": us.unproject_slots.launches, "cuda_launches_per_call": per_call,
+        "ptxas": ptxas,
+    }
+
+
+# ---------------------------------------------------------------------------
 # K3, K4, K5: the decoder convolutions, standalone ops as in the JAX package
 # ---------------------------------------------------------------------------
 
@@ -1385,7 +1498,8 @@ def graph_launches(torch, fn):
 GRAPH_KERNEL_NAMES = {"window_attention": "window_attention_kernel",
                       "global_attention": "global_attention_kernel",
                       "segment_sum": "segment_sum_kernel",
-                      "upsample2x": "upsample2x_bf16"}
+                      "upsample2x": "upsample2x_bf16",
+                      "unproject_slots": "unproject_slots_kernel"}
 CU_GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
 
 
@@ -1629,22 +1743,27 @@ SERVED = {
     # heads' six bilinear resizes are all 2x and take the upsample kernel
     "swin": {"model_type": "dpt_swin2_tiny_256", "version": 3, "parity_batch": 2,
              "latency_reps": 10,
-             "per_request": {"window_attention": 12, "global_attention": 0, "upsample2x": 6}},
+             "per_request": {"window_attention": 12, "global_attention": 0, "upsample2x": 6,
+                             "unproject_slots": 1}},
     "beit": {"model_type": "dpt_beit_large_512", "version": 3, "parity_batch": 1,
              "latency_reps": 10,
-             "per_request": {"window_attention": 0, "global_attention": 24, "upsample2x": 6}},
+             "per_request": {"window_attention": 0, "global_attention": 24, "upsample2x": 6,
+                             "unproject_slots": 1}},
     # SOccDPT V1: two whole DPTs, each with its own Swin-V2 trunk
     "swin_v1": {"model_type": "dpt_swin2_tiny_256", "version": 1, "parity_batch": 2,
                 "latency_reps": 10,
-                "per_request": {"window_attention": 24, "global_attention": 0}},
+                "per_request": {"window_attention": 24, "global_attention": 0,
+                                "unproject_slots": 1}},
     # SOccDPT V2: one trunk, two heads
     "swin_v2": {"model_type": "dpt_swin2_tiny_256", "version": 2, "parity_batch": 2,
                 "latency_reps": 10,
-                "per_request": {"window_attention": 12, "global_attention": 0}},
+                "per_request": {"window_attention": 12, "global_attention": 0,
+                                "unproject_slots": 1}},
     # the ViT-hybrid: a ResNet50 stem and stages, then 12 ViT-B blocks
     "hybrid": {"model_type": "dpt_hybrid_384", "version": 3, "parity_batch": 2,
                "latency_reps": 10,
-               "per_request": {"window_attention": 0, "global_attention": 12}},
+               "per_request": {"window_attention": 0, "global_attention": 12,
+                               "unproject_slots": 1}},
     # the last three families run no attention kernel (their attention is
     # plain PyTorch, as it is plain einsum and softmax in the JAX package):
     # Swin-V1 large at 256 px (padded windows of 12), LeViT-384 at 224 px
@@ -1652,13 +1771,14 @@ SERVED = {
     # 384 px (40 conv and attention blocks)
     "swin1": {"model_type": "dpt_swin_large_384", "version": 3, "parity_batch": 1,
               "latency_reps": 10,
-              "per_request": {"window_attention": 0, "global_attention": 0}},
+              "per_request": {"window_attention": 0, "global_attention": 0, "unproject_slots": 1}},
     "levit": {"model_type": "dpt_levit_224", "version": 3, "parity_batch": 2,
               "latency_reps": 10,
-              "per_request": {"window_attention": 0, "global_attention": 0}},
+              "per_request": {"window_attention": 0, "global_attention": 0, "unproject_slots": 1}},
     "next_vit": {"model_type": "dpt_next_vit_large_384", "version": 3, "parity_batch": 1,
                  "latency_reps": 10, "calibrate_batchnorm": True,
-                 "per_request": {"window_attention": 0, "global_attention": 0}},
+                 "per_request": {"window_attention": 0, "global_attention": 0,
+                                 "unproject_slots": 1}},
 }
 PARITY_ATOL = {"inv_depth": 1e-4, "seg": 1e-4, "points": 5e-3}
 GRID_MISMATCH_LIMIT = 0.01
@@ -1866,6 +1986,7 @@ def phase_serving(torch, card, label):
     from soccdpt_torch.kernels import global_attention as ga
     from soccdpt_torch.kernels import segment_sum as ss
     from soccdpt_torch.kernels import window_attention as wa
+    from soccdpt_torch.kernels.unproject_slots import unproject_slots
     from soccdpt_torch.kernels.upsample import upsample2x
     from soccdpt_torch.models.soccdpt import SOccDPT_versions, build_model
     from soccdpt_torch.ops.geometry import occupancy_slots, rotate_points
@@ -1876,7 +1997,7 @@ def phase_serving(torch, card, label):
     record = RECORD.setdefault(label, {"model_type": spec["model_type"]})
     counters = {"window_attention": wa.window_attention,
                 "global_attention": ga.global_attention, "segment_sum": ss.segment_sum,
-                "upsample2x": upsample2x}
+                "upsample2x": upsample2x, "unproject_slots": unproject_slots}
     cfg = ModelConfig(model_type=spec["model_type"], version=spec["version"])
     t0 = time.perf_counter()
     base = build_model(cfg, device="cuda", seed=0)
@@ -1915,7 +2036,7 @@ def phase_serving(torch, card, label):
     requests = 2
     for fn in counters.values():
         fn.launches = 0
-    upsample2x.fallbacks = 0
+    upsample2x.fallbacks = unproject_slots.fallbacks = 0
     outs = {}
     t0 = time.perf_counter()
     for B, occ in runs:
@@ -1927,6 +2048,8 @@ def phase_serving(torch, card, label):
     # bilinear align_corners=True resizes the graphs' warm-ups and captures
     # left to F.interpolate (a replay runs no Python)
     fallbacks = upsample2x.fallbacks
+    # geometry tails the warm-ups and captures left to the plain path
+    geometry_fallbacks = unproject_slots.fallbacks
     nodes, replayed, census = graphed_launches(
         torch, {f"occ={occ}": fn for occ, fn in serve.items()}, counters)
     # a wrapper ticks at a graph's eager warm-up, which launches, and at its
@@ -1940,13 +2063,16 @@ def phase_serving(torch, card, label):
     record["main_path"] = {"requests": forwards, "seconds": main_path_s, "wrapper_counts": ticks,
                            "graph_kernel_nodes": nodes, "replayed": replayed,
                            "launched": launches, "graphs": census,
-                           "upsample_fallbacks_at_capture": fallbacks}
+                           "upsample_fallbacks_at_capture": fallbacks,
+                           "geometry_fallbacks_at_capture": geometry_fallbacks}
     log(f"{label} main path: {forwards} graph requests in {main_path_s:.1f} s (captures "
         f"included); kernel nodes {nodes}, replayed {replayed}, launched {launches} "
         f"(wrapper counts {ticks}); bilinear resizes left to F.interpolate at warm-up and "
         f"capture {fallbacks}")
     if "upsample2x" in per_graph and fallbacks:
         fail(f"{label}: {fallbacks} bilinear align_corners=True resizes left the upsample kernel")
+    if geometry_fallbacks:
+        fail(f"{label}: {geometry_fallbacks} geometry tails left the geometry kernel")
     for name, n in per_graph.items():
         want_nodes = n * graphs_with[name]
         want_replayed = n * requests * graphs_with[name]
@@ -3567,9 +3693,9 @@ def phase_train_eval_clis(torch, card, tmp, tree):
 DEPLOY_FLAGSHIP, DEPLOY_HYBRID = "dpt_swin2_tiny_256", "dpt_hybrid_384"
 # kernel launches of one forward of each exported program
 DEPLOY_PER_FORWARD = {DEPLOY_FLAGSHIP: {"window_attention": 12, "global_attention": 0,
-                                       "upsample2x": 6},
+                                       "upsample2x": 6, "unproject_slots": 0},
                       DEPLOY_HYBRID: {"window_attention": 0, "global_attention": 12,
-                                      "upsample2x": 6}}
+                                      "upsample2x": 6, "unproject_slots": 0}}
 DEPLOY_RUN_ITERS = 50  # forwards behind run_exported's frames/s line
 DEPLOY_REPS = 20  # forwards whose wall is timed, median
 # the program against the eager model, should they not be equal bit for bit:
@@ -3643,7 +3769,8 @@ def check_program(torch, card, key, path, model_type, eager, size, with_points, 
     program = torch.export.load(str(path))
     nodes = op_nodes(program)
     del program
-    want_per = DEPLOY_PER_FORWARD[model_type]
+    # a program with points runs the geometry tail: one kernel a forward
+    want_per = dict(DEPLOY_PER_FORWARD[model_type], unproject_slots=int(with_points))
     want_nodes = {f"soccdpt.{name}.default": n for name, n in want_per.items() if n}
     t0 = time.perf_counter()
     module = load_program(str(path), torch.device("cuda"))
@@ -4546,7 +4673,7 @@ def main():
         log(f"kernels built: {seconds}")
         for name in ("window_attention", "segment_sum", "global_attention",
                      "global_attention_bwd", "fused_rcu", "fused_fusion", "fused_head",
-                     "upsample"):
+                     "upsample", "unproject_slots"):
             for line in _build.build_log(name).splitlines():
                 if "spill" in line and " 0 bytes spill stores" not in line:
                     log(f"  ptxas {name}: {line.strip()}")
@@ -4562,6 +4689,8 @@ def main():
         k7 = phase_k7(torch, F, ga, sass)
     with phase("the decoder's upsample against its plain version"):
         ku = phase_upsample(torch, F, _build)
+    with phase("the geometry tail against its plain version"):
+        kg = phase_geometry(torch, _build)
     with phase("K3, K4, K5 against their plain versions and the live decoder"):
         k3, k4, k5 = phase_decoder(torch, F, sass)
     torch.cuda.empty_cache()
@@ -4623,6 +4752,7 @@ def main():
                        ("train_cli_hybrid", "global_attention_backward"),
                        ("deploy_flagship", "window_attention"),
                        ("deploy_flagship_points", "window_attention"),
+                       ("deploy_flagship_points", "unproject_slots"),
                        ("deploy_hybrid", "global_attention"),
                        ("eval_others_pt2", "window_attention"),
                        ("parallel_world1", "window_attention")):
@@ -4630,13 +4760,14 @@ def main():
             fail(f"{name} was launched no time on {path}")
     del served_problem
     # each kernel's time inside a served request, from the profile of the
-    # configuration whose attention it is (K2: the flagship's; the upsample:
-    # BEiT-large's, the rig's configuration), and inside a training step
+    # configuration whose attention it is (K2 and the geometry tail: the
+    # flagship's; the upsample: BEiT-large's, the rig's configuration), and
+    # inside a training step
     served_in = {"window_attention": "swin", "segment_sum": "swin", "global_attention": "beit",
-                 "upsample2x": "beit"}
+                 "upsample2x": "beit", "unproject_slots": "swin"}
     trained_in = {"window_attention": "train_swin", "global_attention": "train_beit",
                   "global_attention_backward": "train_beit"}
-    for k in (k1, k2, k6, k7, ku):
+    for k in (k1, k2, k6, k7, ku, kg):
         name = k["name"]
         by_path = {path: counts.get(name, 0) for path, counts in path_launches.items()}
         k["path"] = "main"
@@ -4654,7 +4785,7 @@ def main():
     for k in (k3, k4, k5):
         if k["launches"] < 1:
             fail(f"{k['name']} was launched no time in its phase")
-    kernels = [k1, k2, k3, k4, k5, k6, k7, ku]
+    kernels = [k1, k2, k3, k4, k5, k6, k7, ku, kg]
     RECORD.update({"device": kind, "nvidia_smi": card, "kernels": kernels,
                    "build_seconds": seconds, "phase_seconds": PHASE_SECONDS,
                    "seconds": time.perf_counter() - t_start})

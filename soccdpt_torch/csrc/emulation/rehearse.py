@@ -1,8 +1,8 @@
 """Rehearse the bf16 routes on the tensor cores without a card.
 
-    python soccdpt_torch/csrc/emulation/rehearse.py [global] [window] [head] [segment]
+    python soccdpt_torch/csrc/emulation/rehearse.py [global] [window] [head] [segment] [unproject]
 
-With no argument all four run. Each compiles a route's kernels with g++
+With no argument all five run. Each compiles a route's kernels with g++
 against the emulated ``wgmma_common.cuh`` beside this file, into
 ``build/wgmma_emulation/``, and drives the real wrappers on CPU tensors
 through the emulated library:
@@ -32,6 +32,15 @@ through the emulated library:
   channel-major and strided views, batch-folded keys with runs of equal
   slots, NaN values on dropped rows, C = 1 ... 5, N = 0; the gradient
   against ``segment_sum_backward_plain`` bit for bit.
+* ``unproject``: the geometry tail (all of ``csrc/unproject_slots.cu``,
+  against ``simt_common.cuh``) through ``kernels/unproject_slots.py``'s
+  ``launch``: points and slots bit for bit against ``card_tail``, a numpy
+  model of the plain path's arithmetic on the card (a product by the
+  scalar's f32 reciprocal for ``/ fx``, cuBLAS's FMA chain for the
+  rotation), on images whose pixel count is below a warp's 128, a
+  multiple of it and neither, with slots and without, inverse depths of
+  0, inf, NaN and below 0 among them; and, printed only, the share of
+  slots equal to the plain CPU version's.
 
 A few small shapes take minutes: every CUDA thread is an OS thread. A pass
 here says the ring, the barriers, the descriptors and the fragment layouts
@@ -54,11 +63,14 @@ REPO = CSRC.parents[1]
 OUT = REPO / "build" / "wgmma_emulation"
 sys.path.insert(0, str(REPO))
 
+from soccdpt_torch.core.config import CameraConfig, OccupancyConfig  # noqa: E402
 from soccdpt_torch.kernels import _build  # noqa: E402
 from soccdpt_torch.kernels import fused_head as fh  # noqa: E402
 from soccdpt_torch.kernels import global_attention as ga  # noqa: E402
 from soccdpt_torch.kernels import segment_sum as ss  # noqa: E402
+from soccdpt_torch.kernels import unproject_slots as us  # noqa: E402
 from soccdpt_torch.kernels import window_attention as wa  # noqa: E402
+from soccdpt_torch.ops.geometry import rotation_matrix  # noqa: E402
 
 # (B, H, T, d, bias dtype, strided): ragged tiles, d = 16 and 128, a bf16
 # bias, three images (two groups in the dq kernel), the strided q, k, v of
@@ -105,6 +117,14 @@ SEGMENT_CASES = [
     (2, 512, 4, "rows", "runs"),
     (1, 0, 3, "rows", "random"),
 ]
+# (B, H, W, slots): images of 35 pixels (one at a time), 512 (whole warps),
+# 1961 (H W odd: one at a time), 2640 (whole warps and a ragged end), points alone
+UNPROJECT_CASES = [(1, 5, 7, True), (3, 16, 32, True), (2, 37, 53, True), (2, 40, 66, True),
+                   (2, 40, 66, False)]
+UNPROJECT_CAMERA = (40.0, 41.5, 26.25, 18.0)  # fx, fy, cx, cy
+UNPROJECT_OCC = dict(pc_scale=(3.6, 6.4, 2.207), pc_shift=(64.0, 64.0, 11.69),
+                     correction_angle=(7.0, 0.0, 0.0), grid_size=(256, 256, 32),
+                     scale=(2.0, 2.0, 0.666))
 
 
 def _split_args(s):
@@ -185,21 +205,22 @@ def build(route):
     return libs
 
 
-def build_segment():
-    """K2's whole source against ``simt_common.cuh``, its includes stubbed."""
-    out = OUT / "segment"
+def build_simt(name):
+    """A whole source, ``csrc/<name>.cu``, against ``simt_common.cuh``, its
+    includes stubbed."""
+    out = OUT / name
     out.mkdir(parents=True, exist_ok=True)
     for stub in ("cuda_runtime.h", "cache_hints.cuh"):
         (out / stub).write_text("#pragma once\n")
-    tu = out / "segment_sum.cpp"
+    tu = out / f"{name}.cpp"
     tu.write_text((HERE / "simt_common.cuh").read_text() + "\n"
-                  + _emulated((CSRC / "segment_sum.cu").read_text()))
-    lib = out / "libsegment_sum_emulated.so"
+                  + _emulated((CSRC / f"{name}.cu").read_text()))
+    lib = out / f"lib{name}_emulated.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
                     "-Wno-unknown-pragmas", "-I", str(out), "-o", str(lib), str(tu)], check=True)
     lib = ctypes.CDLL(str(lib))
     lib.soccdpt_error_string.restype = ctypes.c_char_p
-    return {"segment_sum": lib}
+    return {name: lib}
 
 
 def segment_problem(B, N, C, layout, keys, seed=0):
@@ -238,6 +259,70 @@ def run_segment(B, N, C, layout, keys):
     same = torch.equal(got, ss.segment_sum_backward_plain(lin, cot))
     print(f"  gradient bit for bit: {same}")
     return ok and same
+
+
+def card_tail(inv, camera, occ, slots):
+    """The plain path's arithmetic on the card, op by op in numpy f32:
+    ``(points, slot or None)``."""
+    f = np.float32
+    fx, fy, cx, cy = (f(c) for c in camera)
+    B, H, W = inv.shape
+    clamped = np.where(np.isnan(inv), inv, np.maximum(inv, f(1e-8)))
+    depth = f(1) / clamped
+    x = ((np.arange(W, dtype=f) - cx) * depth) * (f(1) / fx)
+    y = ((np.arange(H, dtype=f)[:, None] - cy) * depth) * (f(1) / fy)
+    points = np.stack([x, y, depth], -1)
+    if not slots:
+        return points, None
+    p = points.reshape(B, -1, 3) * np.asarray(occ.pc_scale, f) + np.asarray(occ.pc_shift, f)
+    r = rotation_matrix(occ.correction_angle).astype(np.float64)
+    p64 = p.astype(np.float64)
+    # fma(p2, R2j, fma(p1, R1j, p0 R0j)): exact products in f64, one rounding each
+    q = (p64[..., :1] * r[0]).astype(f)
+    q = (p64[..., 1:2] * r[1] + q).astype(f)
+    q = (p64[..., 2:] * r[2] + q).astype(f)
+    finite = np.isfinite(q).all(-1)
+    q = np.where(finite[..., None], q, f(0))
+    cell = (q / np.asarray(occ.occupancy_shape, f)) * np.asarray(occ.grid_size, f)
+    ijk = np.clip(cell.astype(np.float64), -2.0**31, 2.0**31 - 1).astype(np.int64)
+    grid = np.asarray(occ.grid_size)
+    keep = finite & ((ijk > 0) & (ijk < grid)).all(-1)
+    gx, gy, gz = occ.grid_size
+    lin = (ijk[..., 0] * gy + ijk[..., 1]) * gz + ijk[..., 2] + np.arange(B)[:, None] * gx * gy * gz
+    return points, np.where(keep, lin, -1).reshape(-1).astype(np.int32)
+
+
+def run_unproject(B, H, W, slots):
+    rng = np.random.default_rng(3)
+    inv = rng.uniform(0.05, 0.7, (B, H, W)).astype(np.float32)
+    flat = inv.reshape(-1)
+    for i, special in enumerate((0.0, np.inf, np.nan, -0.3, 1e-12, -np.inf)):
+        flat[(7 * i + 3) % flat.size] = special
+    fx, fy, cx, cy = UNPROJECT_CAMERA
+    scale = (H / 54.0, W / 64.0)
+    camera = CameraConfig(fx=fx * scale[1], fy=fy * scale[0], cx=cx * scale[1],
+                          cy=cy * scale[0], width=W, height=H)
+    occ = OccupancyConfig(**UNPROJECT_OCC)
+    print(f"geometry tail B={B} H={H} W={W} slots={slots}")
+    t = torch.from_numpy(inv)
+    points, slot = us.launch(t, [camera.fx, camera.fy, camera.cx, camera.cy], occ.pc_scale,
+                             occ.pc_shift, occ.correction_angle, occ.grid_size, occ.scale, slots)
+    want_points, want_slot = card_tail(inv, (camera.fx, camera.fy, camera.cx, camera.cy), occ,
+                                       slots)
+    ok = np.array_equal(points.numpy().view(np.int32), want_points.view(np.int32))
+    print(f"  points bit for bit: {ok}")
+    if slots:
+        same = np.array_equal(slot.numpy(), want_slot)
+        kept = float((want_slot >= 0).mean())
+        plain = us.unproject_slots_plain(t, [camera.fx, camera.fy, camera.cx, camera.cy],
+                                         occ.pc_scale, occ.pc_shift, occ.correction_angle,
+                                         occ.grid_size, occ.scale, True)[1]
+        print(f"  slots equal: {same} ({kept:.3f} kept); equal to the CPU's plain version: "
+              f"{float((plain == slot).float().mean()):.6f}")
+        ok &= same and 0.2 < kept < 1.0
+    else:
+        ok &= slot.numel() == 0
+    return bool(ok)
 
 
 def _close(name, got, want, atol, rtol):
@@ -314,14 +399,16 @@ def run_head(B, H, W, Ci, Cm):
 
 
 RUNS = {"global": (run_global, GLOBAL_CASES), "window": (run_window, WINDOW_CASES),
-        "head": (run_head, HEAD_CASES), "segment": (run_segment, SEGMENT_CASES)}
+        "head": (run_head, HEAD_CASES), "segment": (run_segment, SEGMENT_CASES),
+        "unproject": (run_unproject, UNPROJECT_CASES)}
+SIMT = {"segment": "segment_sum", "unproject": "unproject_slots"}  # routes without wgmma
 
 
 def main():
     routes = sys.argv[1:] or list(RUNS)
     libs = {}
     for route in routes:
-        libs.update(build_segment() if route == "segment" else build(route))
+        libs.update(build_simt(SIMT[route]) if route in SIMT else build(route))
     _build.load = libs.__getitem__
     torch.cuda.current_stream = lambda device=None: types.SimpleNamespace(cuda_stream=0)
     ok = True

@@ -1,4 +1,5 @@
-// A g++ emulation of the CUDA runtime that csrc/segment_sum.cu (K2) uses,
+// A g++ emulation of the CUDA runtime that csrc/segment_sum.cu (K2) and
+// csrc/unproject_slots.cu (the geometry tail) use,
 // for rehearsing it on a machine without a card or nvcc: rehearse.py
 // includes this header before the source (its own includes stubbed) and
 // drives the real wrappers through the library. One std::thread per CUDA
@@ -10,6 +11,8 @@
 // their loops wrap.
 #pragma once
 #include <barrier>
+#include <climits>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -35,10 +38,27 @@ inline thread_local dim3 gridDim, blockDim;
 struct int4 { int x, y, z, w; };
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+using std::isfinite;
+using std::isnan;
+
+// f32 arithmetic with one rounding an operation (g++ contracts nothing into
+// an FMA without -mfma), and the saturating truncation of cvt.rzi.s32.f32
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline int __float2int_rz(float f) {
+  if (std::isnan(f)) return 0;
+  if (f >= 2147483648.f) return INT_MAX;
+  if (f <= -2147483648.f) return INT_MIN;
+  return (int)f;
+}
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaDevAttrMultiProcessorCount = 16 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated CUDA error"; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
@@ -102,7 +122,8 @@ template <class T> T __shfl_down_sync(unsigned, T x, int d) {
 // A launch: the CTAs one after another, all threads of a CTA at once.
 template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, int threads, int, A... args) {
-  for (unsigned b = 0; b < grid.x; ++b) {
+  for (unsigned i = 0; i < grid.x * grid.y; ++i) {
+    const unsigned b = i % grid.x, by = i / grid.x;
     Cta c;
     for (int w = 0; w < threads / 32; ++w) c.warp_bar.push_back(std::make_unique<std::barrier<>>(32));
     c.shfl.assign(threads, 0);
@@ -112,7 +133,7 @@ void emu_launch(K kernel, dim3 grid, int threads, int, A... args) {
       ts.emplace_back([=, &c] {
         cta = &c;
         threadIdx = {(unsigned)t, 0, 0};
-        blockIdx = {b, 0, 0};
+        blockIdx = {b, by, 0};
         gridDim = grid;
         blockDim = dim3(threads);
         kernel(args...);

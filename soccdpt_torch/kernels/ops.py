@@ -11,7 +11,10 @@ the package (``cli/run_exported.py``).
   are K6 (``kernels/global_attention.py``), the attention of every
   ViT/BEiT block;
 * ``soccdpt::upsample2x`` (``kernels/upsample.py``) is the DPT decoder's
-  and heads' bf16 2x bilinear upsample.
+  and heads' bf16 2x bilinear upsample;
+* ``soccdpt::unproject_slots`` (``kernels/unproject_slots.py``) is the
+  geometry tail: inverse depth at camera resolution to points and the
+  voxelizer's slot keys.
 
 On CUDA tensors each launches its hand-written kernel, whose library
 ``nvcc`` builds from ``soccdpt_torch/csrc/`` at the first launch; on CPU
@@ -22,12 +25,13 @@ from __future__ import annotations
 from typing import Dict
 
 from .global_attention import global_attention
+from .unproject_slots import unproject_slots
 from .upsample import upsample2x
 from .window_attention import window_attention
 
 # the function whose ``launches`` counts each kernel's launches
 COUNTERS = {"window_attention": window_attention, "global_attention": global_attention,
-            "upsample2x": upsample2x}
+            "upsample2x": upsample2x, "unproject_slots": unproject_slots}
 
 
 def launches() -> Dict[str, int]:
@@ -38,5 +42,6 @@ def launches() -> Dict[str, int]:
 def fallbacks() -> int:
     """The card's bilinear ``align_corners=True`` resizes so far that did
     not take the upsample kernel (``ops/resize.py``): beside
-    ``launches()["upsample2x"]``, the kernel's hit share."""
+    ``launches()["upsample2x"]``, the kernel's hit share. The geometry
+    kernel's are ``unproject_slots.fallbacks``."""
     return upsample2x.fallbacks

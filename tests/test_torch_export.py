@@ -164,7 +164,7 @@ def test_run_exported_in_a_fresh_process(programs, tmp_path):
                          timeout=300).stdout.splitlines()
     assert "outputs: (2, 64, 64) (2, 3, 64, 64)" in out
     assert ("kernel launches in one forward: window_attention 0, global_attention 0, "
-            "upsample2x 0") in out
+            "upsample2x 0, unproject_slots 0") in out
     assert f"saved {png}" in out and png.stat().st_size > 0
     assert out[-1].endswith("ms/forward)") and " Hz (" in out[-1]
     probe = ("import sys; from soccdpt_torch.cli import run_exported; "
@@ -222,7 +222,7 @@ def test_global_attention_ops_pass_opcheck_and_are_the_plain_version(dtype, bias
 
 def test_ops_module_registers_every_op_and_counts_launches():
     for op in ("window_attention", "global_attention", "global_attention_with_lse",
-               "upsample2x"):
+               "upsample2x", "unproject_slots"):
         assert hasattr(torch.ops.soccdpt, op)
     before = ops.launches()
     torch.ops.soccdpt.window_attention(*_k1_args(torch.float32, False))
