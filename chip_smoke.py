@@ -41,8 +41,8 @@ Phases, each of which fails the run on any error:
    ragged ones, in f32 and bf16 (all three run bf16 on the tensor cores); then on
    the live flagship decoder, whose modules' inputs and outputs forward
    hooks capture during one served request, each kernel held to the module
-   it replaces on that module's weights (the launch counts set to 0 just
-   before and read just after): K3 to the RCU's output, K4 and K5 to their
+   it replaces on that module's weights (the launch counts read just
+   before and just after): K3 to the RCU's output, K4 and K5 to their
    modules' chain with ``F.interpolate`` as the upsample, since the served
    bf16 modules and K4's and K5's bf16 routes share the port's upsample
    kernel; the CUDA launches of one call of each op,
@@ -61,8 +61,8 @@ Phases, each of which fails the run on any error:
    ``dpt_swin_large_384`` (Swin-V1 large, padded windows of 12),
    ``dpt_levit_224`` (LeViT-384 and its stem transpose) and
    ``dpt_next_vit_large_384`` (its BatchNorm statistics first set from two
-   frames, ``calibrate_batchnorm``). For each, the launch counts are set to 0 just before its
-   requests and read just after; the graphs' kernel nodes, read through
+   frames, ``calibrate_batchnorm``). For each, the launch counts are read just before its
+   requests and just after; the graphs' kernel nodes, read through
    libcuda's graph API, times their replays prove the path ran through its
    kernels (on BEiT-L/512 and the flagship also the upsample, 6 nodes a
    graph and no bilinear resize left to ``F.interpolate``; on every
@@ -179,9 +179,10 @@ from pathlib import Path
 
 import numpy as np
 
+from benchmark.work import (HBM_BYTES_PER_S, PEAK_FLOPS, bound, k1_bytes_flops, k2_bytes,
+                            k6_bytes_flops)
+
 HERE = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak rate
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 K1_F32_ATOL, K1_BF16_ATOL = 2e-5, 5e-2
 K2_RTOL, K2_ONE_CELL_RTOL, K2_ATOL = 1e-5, 1e-4, 1e-5
 K6_F32_TOL, K6_BF16_TOL = 2e-5, 2e-2  # atol = rtol, as tests/test_global_attention.py
@@ -221,6 +222,23 @@ def smi():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def counts(names):
+    """The kernels' launches so far by name, from ``kernels.ops.launches()``:
+    ``global_attention`` counts K6's two ops, with and without the rows'
+    log-sum-exp (a forward under autograd takes the second), as one kernel."""
+    from soccdpt_torch.kernels import ops
+
+    launched = ops.launches()
+    launched["global_attention"] += launched["global_attention_with_lse"]
+    return {name: launched[name] for name in names}
+
+
+def since(before):
+    """Each kernel's launches since ``before``, a reading of ``counts``."""
+    now = counts(before)
+    return {name: now[name] - before[name] for name in before}
 
 
 def cuda_ms(torch, fn, iters=20, graph=True, stream=None):
@@ -321,11 +339,6 @@ def k1_library(torch, F, q, k, v, s, b, m):
     return lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=am, scale=1.0)
 
 
-def k1_bytes_flops(Bw, H, N, d, nW, itemsize):
-    nbytes = 4 * Bw * H * N * d * itemsize + H * N * N * 4 + (nW * N * N * 4 if nW else 0)
-    return nbytes, 4 * Bw * H * N * N * d
-
-
 def phase_k1(torch, F, wa, sass):
     checks, worst = [], {"float32": 0.0, "bfloat16": 0.0}
     for i, (Bw, H, N, d, _, _) in enumerate(K1_FORWARD[::2] + [K1_FORWARD[-1]]):
@@ -395,10 +408,9 @@ def phase_k1(torch, F, wa, sass):
         tot["flops"] += flops * count
         log(f"K1 time {Bw}x{H}x{N}x{d} mask={nW} bf16 x{count}: kernel {t['ms']:.4f} ms, "
             f"plain {t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms")
-    byte_ms = tot["bytes"] / HBM_BYTES_PER_S * 1e3
-    flop_ms = tot["flops"] / PEAK_FLOPS["bfloat16"] * 1e3
     RECORD["k1"] = {"checks": checks, "views": views, "per_shape": per_shape, "forward": tot}
-    bound_ms = max(byte_ms, flop_ms)
+    bound_s, bound_by = bound(tot["bytes"], tot["flops"])
+    bound_ms = bound_s * 1e3
     log(f"K1 time, 12 launches, bf16: kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
         f"sdpa {tot['library_ms']:.4f} ms, bound {bound_ms:.4f} ms: {bound_ms / tot['ms']:.1%} of "
         f"the roofline")
@@ -412,7 +424,7 @@ def phase_k1(torch, F, wa, sass):
         "tolerance": {"float32": K1_F32_ATOL, "bfloat16": K1_BF16_ATOL},
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "library_ms": tot["library_ms"],
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
+        "bound_by": bound_by,
         "timed": "the 12 launches of one bf16 batch-1 forward, summed",
         "roofline_share": bound_ms / tot["ms"],
         "cuda_launches_per_call": launches,
@@ -448,10 +460,6 @@ def k6_inputs(torch, B, H, T, d, bias_dtype, dtype, seed, n_bias=1):
         biases = [torch.randn(H, T, T, device="cuda", generator=g).to(bias_dtype)
                   for _ in range(n_bias)]
     return q, k, v, biases
-
-
-def k6_bytes_flops(B, H, T, d, itemsize, bias_itemsize):
-    return 4 * B * H * T * d * itemsize + H * T * T * bias_itemsize, 4 * B * H * T * T * d
 
 
 def phase_k6(torch, F, ga, sass):
@@ -503,18 +511,16 @@ def phase_k6(torch, F, ga, sass):
                 for m in masks]),
         }
         nbytes, flops = k6_bytes_flops(B, H, T, d, 2, biases[0].element_size() if bias_name else 0)
-        byte_ms = n * nbytes / HBM_BYTES_PER_S * 1e3
-        flop_ms = n * flops / PEAK_FLOPS["bfloat16"] * 1e3
+        bound_s, bound_by = bound(n * nbytes, n * flops)
         forwards.append({"forward": label, "shape": [B, H, T, d], "bias": bias_name,
                          "launches_per_forward": n, **t,
                          "bytes": n * nbytes,
                          "flops": n * flops,
-                         "bound_ms": max(byte_ms, flop_ms),
-                         "bound_by": "bytes" if byte_ms >= flop_ms else "operations"})
+                         "bound_ms": bound_s * 1e3,
+                         "bound_by": bound_by})
         log(f"K6 time, {n} launches, bf16, {label}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
-            f"{max(byte_ms, flop_ms):.4f} ms ({forwards[-1]['bound_by']}): "
-            f"{max(byte_ms, flop_ms) / t['ms']:.1%} of the roofline")
+            f"{bound_s * 1e3:.4f} ms ({bound_by}): {bound_s * 1e3 / t['ms']:.1%} of the roofline")
         if label == K6_FORWARDS[0][0]:
             launches, by_op = cuda_launches(torch, lambda: ga.global_attention(
                 q, k, v, biases[0], scale))
@@ -644,19 +650,17 @@ def phase_k7(torch, F, ga, sass):
                 ga._launch_backward(q, k, v, b, o, l, g, scale, b is not None, img=n)
                 for b, (o, l) in zip(biases, fwd)], iters=5) for n in (1, 2)}
         nbytes, flops = k7_bytes_flops(B, H, T, d, 2, biases[0].element_size() if bias_name else 0)
-        byte_ms = n * nbytes / HBM_BYTES_PER_S * 1e3
-        flop_ms = n * flops / PEAK_FLOPS["bfloat16"] * 1e3
+        bound_s, bound_by = bound(n * nbytes, n * flops)
         backwards.append({"backward": label, "shape": [B, H, T, d], "bias": bias_name,
                           "launches_per_backward": n, **t,
                           "bytes": n * nbytes,
                           "flops": n * flops,
-                          "bound_ms": max(byte_ms, flop_ms),
-                          "bound_by": "bytes" if byte_ms >= flop_ms else "operations"})
+                          "bound_ms": bound_s * 1e3,
+                          "bound_by": bound_by})
         log(f"K7 time, {n} launches, bf16, {label}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, sdpa backward {t['library_ms']:.4f} ms by graph replay "
             f"({t['library_ms_as_launched']:.4f} ms as launched), bound "
-            f"{max(byte_ms, flop_ms):.4f} ms ({backwards[-1]['bound_by']}): "
-            f"{max(byte_ms, flop_ms) / t['ms']:.1%} of the roofline"
+            f"{bound_s * 1e3:.4f} ms ({bound_by}): {bound_s * 1e3 / t['ms']:.1%} of the roofline"
             + (f"; by images a dq CTA holds {t['ms_by_images_per_dq_cta']}" if B >= 2 else ""))
         if label == K7_BACKWARDS[0][0]:
             launches, by_op = cuda_launches(torch, lambda: ga.global_attention_backward(
@@ -689,11 +693,6 @@ def phase_k7(torch, F, ga, sass):
 # ---------------------------------------------------------------------------
 # K2: segment sum
 # ---------------------------------------------------------------------------
-
-
-def k2_bytes(lin, num_slots, C):
-    kept = int(((lin >= 0) & (lin < num_slots)).sum())
-    return lin.numel() * 4 + kept * C * 4 + num_slots * C * 4
 
 
 def k2_backward_bytes(torch, lin, num_slots, C):
@@ -826,14 +825,14 @@ def phase_k2(torch, ss, problems, _build):
     grads = {}
     for d in ("cpu", dev):
         x = sem.detach().to(d).requires_grad_()
-        for fn in (ss.segment_sum, ss.segment_sum_backward):
-            fn.launches = 0
+        before = counts(("segment_sum", "segment_sum_backward"))
         grid = points_to_occupancy_grid(points.to(d), x.transpose(1, 2), occ_cfg, C)
         (grid * w.to(d)).sum().backward()
         grads[d] = (grid.detach().cpu(), x.grad.cpu())
-        if d == dev and (ss.segment_sum.launches, ss.segment_sum_backward.launches) != (1, 1):
-            fail(f"the card's gradient took {ss.segment_sum.launches} forward and "
-                 f"{ss.segment_sum_backward.launches} backward launches, expected 1 and 1")
+        launched = since(before)
+        if d == dev and tuple(launched.values()) != (1, 1):
+            fail(f"the card's gradient took {launched['segment_sum']} forward and "
+                 f"{launched['segment_sum_backward']} backward launches, expected 1 and 1")
     grid_err = float((grads[dev][0] - grads["cpu"][0]).abs().max())
     grad_err = float((grads[dev][1] - grads["cpu"][1]).abs().max())
     log(f"K2 gradient through points_to_occupancy_grid, card against CPU: grid max|err| "
@@ -871,7 +870,8 @@ def phase_k2(torch, ss, problems, _build):
             launches = {"forward": graph_launches(torch, lambda: ss.segment_sum(l, v, s)),
                         "backward": graph_launches(
                             torch, lambda: ss.segment_sum_backward(l, cot_b))}
-        nbytes, bbytes = k2_bytes(l, s, C), k2_backward_bytes(torch, l, s, C)
+        nbytes = k2_bytes(l.numel(), int(keep.sum()), s, C)
+        bbytes = k2_backward_bytes(torch, l, s, C)
         t.update({"bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                   "flop_bound_ms": int(keep.sum()) * C / PEAK_FLOPS["float32"] * 1e3,
                   "backward_bytes": bbytes, "backward_bound_ms": bbytes / HBM_BYTES_PER_S * 1e3,
@@ -945,13 +945,13 @@ def bf16_steps(torch, got, want):
 
 def phase_upsample(torch, F, _build):
     """The upsample op on the card at ``UPSAMPLE_CALLS``: one launch a call
-    (the count set to 0 first) within ``UPSAMPLE_BF16_STEPS`` of
+    (counted from the phase's start) within ``UPSAMPLE_BF16_STEPS`` of
     ``upsample2x_plain``; then kernel, plain and library ms by CUDA-graph
     replay beside the bytes bound, summed a request. The first cell's request
     is the entry's; the second's sits beside it."""
     from soccdpt_torch.kernels import upsample as up
 
-    up.upsample2x.launches = 0
+    start = counts(["upsample2x"])
     calls, cells, worst, least_equal = [], {}, 0, 1.0
     with torch.no_grad():
         for cell, table in UPSAMPLE_CALLS.items():
@@ -960,12 +960,12 @@ def phase_upsample(torch, F, _build):
                 B = UPSAMPLE_BATCH
                 g = torch.Generator(device="cuda").manual_seed(500 + i)
                 x = (torch.randn(B, n, n, C, device="cuda", generator=g) * 3).bfloat16()
-                before = up.upsample2x.launches
+                before = counts(["upsample2x"])
                 got = up.upsample2x(x)
                 torch.cuda.synchronize()
-                if up.upsample2x.launches - before != 1:
+                if since(before)["upsample2x"] != 1:
                     fail(f"upsample {cell} {call}: the op launched the kernel "
-                         f"{up.upsample2x.launches - before} times")
+                         f"{since(before)['upsample2x']} times")
                 steps, same = bf16_steps(torch, got, up.upsample2x_plain(x))
                 worst, least_equal = max(worst, steps), min(least_equal, same)
                 if got.shape != (B, 2 * n, 2 * n, C) or steps > UPSAMPLE_BF16_STEPS:
@@ -1000,7 +1000,7 @@ def phase_upsample(torch, F, _build):
         per_call = graph_launches(torch, lambda: up.upsample2x(x))
     ptxas = [line.strip() for line in _build.build_log("upsample").splitlines()
              if "registers" in line or "spill" in line]
-    launches = up.upsample2x.launches
+    launches = since(start)["upsample2x"]
     RECORD["upsample"] = {"calls": calls, "requests": cells, "ptxas": ptxas}
     (rig, rig_t), (backlog, backlog_t) = cells.items()
     return {
@@ -1048,15 +1048,15 @@ def geometry_configs(name):
 
 def phase_geometry(torch, _build):
     """The geometry kernel (the ``soccdpt::unproject_slots`` op) at a batch-6
-    1080p request of each ``GEOMETRY_CONFIGS``: one launch a call (the count
-    set to 0 first), the points bit for bit and the slots within
+    1080p request of each ``GEOMETRY_CONFIGS``: one launch a call (counted
+    from the phase's start), the points bit for bit and the slots within
     ``GEOMETRY_SLOT_MISMATCH`` of the plain path on the card; then kernel
     and plain ms (the composition the kernel replaced) by CUDA-graph replay,
     with slots and with points alone, beside the bytes bound."""
     from soccdpt_torch.kernels import unproject_slots as us
     from soccdpt_torch.ops import geometry
 
-    us.unproject_slots.launches = 0
+    start = counts(["unproject_slots"])
     B, (H, W) = GEOMETRY_BATCH, (1080, 1920)
     rows = {}
     with torch.no_grad():
@@ -1072,12 +1072,12 @@ def phase_geometry(torch, _build):
                 frame = geometry.occupancy_frame(points.reshape(B, -1, 3), occ)
                 return points, geometry.slot_keys(frame, occ)
 
-            before = us.unproject_slots.launches
+            before = counts(["unproject_slots"])
             points, slot = us.unproject_slots(inv, cam, occ, True)
             torch.cuda.synchronize()
-            if us.unproject_slots.launches - before != 1:
+            if since(before)["unproject_slots"] != 1:
                 fail(f"geometry {name}: the op launched the kernel "
-                     f"{us.unproject_slots.launches - before} times")
+                     f"{since(before)['unproject_slots']} times")
             want_points, want_slot = plain()
             equal = torch.equal(points.view(torch.int32), want_points.view(torch.int32))
             mismatch = float((slot != want_slot).float().mean())
@@ -1120,7 +1120,7 @@ def phase_geometry(torch, _build):
         "timed": f"a batch-{B} 1080p request of {first['config']}, by CUDA-graph replay",
         "plain": "the composition it replaced: camera_frame_points, occupancy_frame, slot_keys",
         **{r["config"]: {k: r[k] for k in columns} for r in others},
-        "launches_in_phase": us.unproject_slots.launches, "cuda_launches_per_call": per_call,
+        "launches_in_phase": since(start)["unproject_slots"], "cuda_launches_per_call": per_call,
         "ptxas": ptxas,
     }
 
@@ -1211,12 +1211,6 @@ def head_bytes_flops(B, H, W, Ci, Cm, itemsize):
     P = 4 * B * H * W
     nbytes = (B * H * W * Ci + P + 9 * Ci * Cm + 2 * Cm + 1) * itemsize
     return nbytes, 6 * P * Ci + 2 * P * 9 * Ci * Cm + 2 * P * Cm
-
-
-def bound(nbytes, flops, dtype_name):
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    flop_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return max(byte_ms, flop_ms), "bytes" if byte_ms >= flop_ms else "operations"
 
 
 def decoder_weights(mods):
@@ -1340,7 +1334,8 @@ def time_calls(torch, kernels, calls, label):
                 tot["bytes"] += count * nbytes
                 tot["flops"] += count * flops
                 tot["calls"] += count
-            tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["flops"], "bfloat16")
+            bound_s, tot["bound_by"] = bound(tot["bytes"], tot["flops"])
+            tot["bound_ms"] = bound_s * 1e3
             out[name] = tot
             log(f"{name} time, {label}, bf16, {tot['calls']} call(s): kernel {tot['ms']:.4f} ms, "
                 f"plain {tot['plain_ms']:.4f} ms, cuDNN chain {tot['library_ms']:.4f} ms, bound "
@@ -1633,12 +1628,11 @@ def phase_decoder(torch, F, sass):
         dname = str(dtype).split(".")[-1]
         model, rcus, tail_in, head_in = live_decoder(torch, dtype)
         cases = live_cases(torch, F, model, rcus, tail_in, head_in)
-        for fn, _ in kernels.values():
-            fn.launches = 0
+        before = counts(kernels)
         with torch.no_grad():
             outs = [kernels[name][0](*args) for name, _, args, _, _ in cases]
         torch.cuda.synchronize()
-        live[dname] = {name: fn.launches for name, (fn, _) in kernels.items()}
+        live[dname] = since(before)
         for (name, what, args, want, _), got in zip(cases, outs):
             record(name, got, want, args[0].shape, f"live {what}, against the module's chain",
                    dname)
@@ -1983,11 +1977,7 @@ def train_mode_check(torch, cfg16, same_weights, label):
 
 def phase_serving(torch, card, label):
     from soccdpt_torch.core.config import ModelConfig
-    from soccdpt_torch.kernels import global_attention as ga
-    from soccdpt_torch.kernels import segment_sum as ss
-    from soccdpt_torch.kernels import window_attention as wa
-    from soccdpt_torch.kernels.unproject_slots import unproject_slots
-    from soccdpt_torch.kernels.upsample import upsample2x
+    from soccdpt_torch.kernels import ops
     from soccdpt_torch.models.soccdpt import SOccDPT_versions, build_model
     from soccdpt_torch.ops.geometry import occupancy_slots, rotate_points
     from soccdpt_torch.serving import GraphedFunction, make_serving_fn
@@ -1995,9 +1985,8 @@ def phase_serving(torch, card, label):
 
     spec = SERVED[label]
     record = RECORD.setdefault(label, {"model_type": spec["model_type"]})
-    counters = {"window_attention": wa.window_attention,
-                "global_attention": ga.global_attention, "segment_sum": ss.segment_sum,
-                "upsample2x": upsample2x, "unproject_slots": unproject_slots}
+    counters = ("window_attention", "global_attention", "segment_sum", "upsample2x",
+                "unproject_slots")
     cfg = ModelConfig(model_type=spec["model_type"], version=spec["version"])
     t0 = time.perf_counter()
     base = build_model(cfg, device="cuda", seed=0)
@@ -2034,9 +2023,7 @@ def phase_serving(torch, card, label):
         fail(f"{label}: make_serving_fn did not serve through CUDA graphs on the card")
     runs = [(1, False), (1, True), (2, False), (2, True)]
     requests = 2
-    for fn in counters.values():
-        fn.launches = 0
-    upsample2x.fallbacks = unproject_slots.fallbacks = 0
+    start, fallen = counts(counters), ops.fallbacks()
     outs = {}
     t0 = time.perf_counter()
     for B, occ in runs:
@@ -2044,12 +2031,12 @@ def phase_serving(torch, card, label):
             outs[(B, occ)] = serve[occ](frames_u8(torch, B, 10 * B + r))
     torch.cuda.synchronize()
     main_path_s = time.perf_counter() - t0
-    ticks = {name: fn.launches for name, fn in counters.items()}
+    ticks = since(start)
     # bilinear align_corners=True resizes the graphs' warm-ups and captures
-    # left to F.interpolate (a replay runs no Python)
-    fallbacks = upsample2x.fallbacks
-    # geometry tails the warm-ups and captures left to the plain path
-    geometry_fallbacks = unproject_slots.fallbacks
+    # left to F.interpolate (a replay runs no Python), and geometry tails
+    # they left to the plain path
+    fallbacks, geometry_fallbacks = (ops.fallbacks()[name] - fallen[name]
+                                     for name in ("upsample2x", "unproject_slots"))
     nodes, replayed, census = graphed_launches(
         torch, {f"occ={occ}": fn for occ, fn in serve.items()}, counters)
     # a wrapper ticks at a graph's eager warm-up, which launches, and at its
@@ -2134,12 +2121,12 @@ def phase_serving(torch, card, label):
         cfg_head = dataclasses.replace(cfg32, occupancy_head=True)
         head_model = same_weights(cfg_head)
         frames = frames_u8(torch, 1, 8)
-        before = ga.global_attention.launches
+        before = counts(["global_attention"])
         head_fn = make_serving_fn(cfg_head, head_model, compute_occ=True)
         got = head_fn(frames)
         nodes, replayed, _ = graphed_launches(torch, {"head": head_fn}, ["global_attention"])
         if replayed["global_attention"] != 24 or (
-                ga.global_attention.launches - before != 2 * nodes["global_attention"]):
+                since(before)["global_attention"] != 2 * nodes["global_attention"]):
             fail("beit: the occupancy-head request did not run K6 24 times")
         cpu_model = copy.deepcopy(head_model).cpu()
         want = make_serving_fn(cfg_head, cpu_model, compute_occ=True, device="cpu")(frames.cpu())
@@ -2344,8 +2331,6 @@ def phase_stream(torch, card):
     hand-over to its output's readiness, the share of the run the serving
     stream was busy (CUDA events around each request)."""
     from soccdpt_torch.core.config import ModelConfig
-    from soccdpt_torch.kernels import segment_sum as ss
-    from soccdpt_torch.kernels import window_attention as wa
     from soccdpt_torch.models.soccdpt import SOccDPT_versions, build_model
     from soccdpt_torch.serving import make_serving_fn, serve_stream
 
@@ -2382,9 +2367,7 @@ def phase_stream(torch, card):
         def busy_s(self):
             return sum(s.elapsed_time(e) for s, e in self.events) / 1e3
 
-    counters = {"window_attention": wa.window_attention, "segment_sum": ss.segment_sum}
-    for fn in counters.values():
-        fn.launches = 0
+    start = counts(("window_attention", "segment_sum"))
     serve = {occ: make_serving_fn(cfg16, model, compute_occ=occ) for occ in (False, True)}
     runs, requests, misses = {}, 0, []
     for occ in (False, True):
@@ -2440,10 +2423,10 @@ def phase_stream(torch, card):
                 del outs
         del want
     torch.cuda.synchronize()
-    ticks = {name: fn.launches for name, fn in counters.items()}
+    ticks = since(start)
     nodes, replayed, census = graphed_launches(
-        torch, {f"occ={occ}": fn for occ, fn in serve.items()}, counters)
-    launches = {name: ticks[name] - nodes[name] + replayed[name] for name in counters}
+        torch, {f"occ={occ}": fn for occ, fn in serve.items()}, ticks)
+    launches = {name: ticks[name] - nodes[name] + replayed[name] for name in ticks}
     record.update({"frames": STREAM_FRAMES, "runs": runs, "requests": requests,
                    "launched": launches, "graphs": census,
                    "limits": {"frames_per_s": STREAM_RATE_LIMIT,
@@ -2775,16 +2758,12 @@ def f32_parity(torch, label, mcfg, base, batch, record, nudged_spread=False):
 def phase_training(torch, card, label):
     from soccdpt_torch.core.config import ModelConfig, TrainConfig
     from soccdpt_torch.data.synthetic import make_batch
-    from soccdpt_torch.kernels import global_attention as ga
-    from soccdpt_torch.kernels import window_attention as wa
     from soccdpt_torch.train.trainer import Trainer
 
     spec = TRAINED[label]
     record = RECORD.setdefault(f"train_{label}", {"model_type": spec["model_type"],
                                                   "batch": spec["batch"]})
-    counters = {"window_attention": wa.window_attention,
-                "global_attention": ga.global_attention,
-                "global_attention_backward": ga.global_attention_backward}
+    counters = ("window_attention", "global_attention", "global_attention_backward")
     mcfg = ModelConfig(model_type=spec["model_type"], version=spec["version"])
     net_w, net_h = mcfg.net_size
     batch = make_batch(0, spec["batch"], (1080, 1920), (net_h, net_w), mcfg.num_classes)
@@ -2809,18 +2788,17 @@ def phase_training(torch, card, label):
     launches = {name: 0 for name in counters}
     losses, times = [], []
     for step in range(TRAIN_STEPS):
-        for fn in counters.values():
-            fn.launches = 0
+        before = counts(counters)
         t0 = time.perf_counter()
         state, metrics = trainer.train_step(state, batch, gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
-        for name, fn in counters.items():
-            if fn.launches != spec["per_step"][name]:
-                fail(f"train {label}: {name} ran {fn.launches} times in step {step}, expected "
+        for name, n in since(before).items():
+            if n != spec["per_step"][name]:
+                fail(f"train {label}: {name} ran {n} times in step {step}, expected "
                      f"{spec['per_step'][name]}")
-            launches[name] += fn.launches
+            launches[name] += n
     log(f"train {label} bf16, {TRAIN_STEPS} steps at lr {TRAIN_LR}: losses "
         f"{[round(x, 4) for x in losses]}; launches {launches}")
     if not all(np.isfinite(losses)):
@@ -2913,20 +2891,6 @@ OCC_PROFILED_STEP = 3  # the step of the run (0-based) whose device time is prof
 OCC_HOST_SAMPLES = 4  # samples timed part by part on the host
 OCC_COPY_BATCHES = 3  # batches the copy and the pool comparison cycle through
 OCC_POOL_ROUNDS = 4  # alternating rounds of the pool comparison
-
-
-def occ_counters():
-    from soccdpt_torch.kernels import fused_fusion, fused_head, fused_rcu
-    from soccdpt_torch.kernels import global_attention as ga
-    from soccdpt_torch.kernels import segment_sum as ss
-    from soccdpt_torch.kernels import window_attention as wa
-
-    return {"window_attention": wa.window_attention, "segment_sum": ss.segment_sum,
-            "segment_sum_backward": ss.segment_sum_backward,
-            "global_attention": ga.global_attention,
-            "global_attention_backward": ga.global_attention_backward,
-            "fused_rcu": fused_rcu.fused_rcu, "fused_rcu_tail": fused_fusion.fused_rcu_tail,
-            "fused_head_tail": fused_head.fused_head_tail}
 
 
 def occ_base_checkpoint(torch, camera, path):
@@ -3191,7 +3155,7 @@ def phase_occupancy(torch, card):
     flagship at full width: the fixture tree at 1920x1080, the host
     library, GT and copy times, the f32 step against the CPU's, then the
     CLI's main path (six bf16 steps, the checkpoint and the val IoU) with
-    the launch counts set to 0 just before it and read just after."""
+    the launch counts read just before it and just after."""
     import os
     import tempfile
 
@@ -3207,7 +3171,7 @@ def phase_occupancy(torch, card):
                                                   "version": 3, "batch": 1,
                                                   "grid": [256, 256, 32, 3],
                                                   "frames": [1080, 1920], "args": OCC_ARGS})
-    counters = occ_counters()
+    counters = tuple(OCC_PER_STEP)
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="occ_") as tmp:
         tree = os.path.join(tmp, "bdd")
@@ -3236,7 +3200,7 @@ def phase_occupancy(torch, card):
         orig = tocc.occupancy_step
 
         def counted(*args, **kwargs):
-            before = {name: fn.launches for name, fn in counters.items()}
+            before = counts(counters)
             torch.cuda.synchronize()
             profiled = len(steps) == OCC_PROFILED_STEP
             t0 = time.perf_counter()
@@ -3250,12 +3214,11 @@ def phase_occupancy(torch, card):
                 loss = orig(*args, **kwargs)
                 torch.cuda.synchronize()
             steps.append({"ms": (time.perf_counter() - t0) * 1e3, "profiled": profiled,
-                          "launches": {n: fn.launches - before[n] for n, fn in counters.items()}})
+                          "launches": since(before)})
             return loss
 
         ckpts = os.path.join(tmp, "checkpoints")
-        for fn in counters.values():
-            fn.launches = 0
+        start = counts(counters)
         tocc.occupancy_step = counted
         os.chdir(tmp)
         try:
@@ -3265,7 +3228,7 @@ def phase_occupancy(torch, card):
         finally:
             tocc.occupancy_step = orig
             os.chdir(cwd)
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = since(start)
         with open(os.path.join(tmp, "logs", "metrics_occupancy.jsonl")) as fh:
             logged = [json.loads(line) for line in fh]
         ckpt = os.path.join(ckpts, "SOccDPT_Occupancy", "run", "checkpoint_epoch_1.pt")
@@ -3363,7 +3326,7 @@ def run_train_cli(torch, tcli, args, counters):
     orig = Trainer.train_step
 
     def counted(self, *a, **kw):
-        before = {name: fn.launches for name, fn in counters.items()}
+        before = counts(counters)
         torch.cuda.synchronize()
         profiled = len(steps) == CLI_PROFILED_STEP
         t0 = time.perf_counter()
@@ -3377,8 +3340,7 @@ def run_train_cli(torch, tcli, args, counters):
             torch.cuda.synchronize()
         masks[:] = self.masks
         steps.append({"start": t0, "ms": (time.perf_counter() - t0) * 1e3, "profiled": profiled,
-                      "patch_steps": len(self.masks),
-                      "launches": {n: fn.launches - before[n] for n, fn in counters.items()}})
+                      "patch_steps": len(self.masks), "launches": since(before)})
         return out
 
     Trainer.train_step = counted
@@ -3498,12 +3460,11 @@ def cli_swin(torch, card, tcli, ti, tree, tmp, counters, record):
         for name, extra in (("host_thread", []), ("serial", ["--host_prefetch", "0"])):
             run_dir = tmp / f"swin_{name}"
             torch.cuda.synchronize()
-            for fn in counters.values():
-                fn.launches = 0
+            start = counts(counters)
             runs[name] = run_train_cli(torch, tcli, cli_args(
                 str(tree), str(sweep_path), "dpt_swin2_tiny_256", CLI_SWIN_STEPS, run_dir, *extra),
                 counters)[:4]
-            runs[name] += ({n: fn.launches for n, fn in counters.items()}, jsonl_log(run_dir))
+            runs[name] += (since(start), jsonl_log(run_dir))
     finally:
         ti.load_imported = orig_load
     (results, steps, rows, seconds, launches, logged) = runs["host_thread"]
@@ -3579,12 +3540,11 @@ def cli_hybrid(torch, card, tcli, tree, tmp, counters, record):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    start = counts(counters)
     results, steps, rows, seconds, masks = run_train_cli(torch, tcli, cli_args(
         str(tree), str(HERE / CLI_HYBRID_SWEEP), "dpt_hybrid_384", CLI_HYBRID_STEPS, run_dir),
         counters)
-    launches = {n: fn.launches for n, fn in counters.items()}
+    launches = since(start)
     logged = jsonl_log(run_dir)
     depth = 12
     per_step = {"window_attention": 0, "segment_sum": 0,
@@ -3613,8 +3573,7 @@ def cli_eval(torch, card, tree, tmp, ckpt, counters, record):
     from soccdpt_torch.cli import eval as ecli
 
     media = tmp / "media"
-    for fn in counters.values():
-        fn.launches = 0
+    start = counts(counters)
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -3622,7 +3581,7 @@ def cli_eval(torch, card, tree, tmp, ckpt, counters, record):
                              "-l", str(ckpt), "--num_samples", str(CLI_EVAL_SAMPLES),
                              "--media_dir", str(media)])
     seconds = time.perf_counter() - t0
-    launches = {n: fn.launches for n, fn in counters.items()}
+    launches = since(start)
     out = buf.getvalue()
     panels = sorted((media / "dpt_swin2_tiny_256_bdd_v3").glob("sample_*.png"))
     fps = [line for line in out.splitlines() if line.startswith("FPS")]
@@ -3655,14 +3614,14 @@ def phase_train_eval_clis(torch, card, tmp, tree):
     width on the BDD fixture tree ``tree`` (``write_cli_tree``), working in
     ``tmp``: the flagship from a reference-layout ``.pth``,
     ``dpt_hybrid_384`` from its published sweep file, the eval CLI on the
-    flagship's checkpoint. Each run's launch counts are set to 0 just
-    before it and read just after; returns them by path."""
+    flagship's checkpoint. Each run's launch counts are read just
+    before it and just after; returns them by path."""
     import os
 
     from soccdpt_torch.cli import train as tcli
     from soccdpt_torch.core import torch_import as ti
 
-    counters = occ_counters()
+    counters = tuple(OCC_PER_STEP)
     cwd = os.getcwd()
     launches = {}
     os.chdir(tmp)
@@ -3714,17 +3673,6 @@ ANALYSIS_SAMPLES = 6
 K2_REPEATS = 5  # identical grid requests whose grids are compared bit for bit
 
 
-def deploy_counters():
-    from soccdpt_torch.kernels import ops
-
-    return ops.COUNTERS
-
-
-def reset_counts(counters):
-    for fn in counters.values():
-        fn.launches = 0
-
-
 def op_nodes(program):
     """The ``soccdpt::`` nodes of an exported program's graph, by op."""
     out = {}
@@ -3761,7 +3709,7 @@ def run_exported_process(path, batch, size):
 def check_program(torch, card, key, path, model_type, eager, size, with_points, counters, record):
     """The exported program at ``path``, loaded in this process, against the
     eager model on seeded inputs at batch 1 and 2: its nodes, the kernels it
-    launches a forward (counts set to 0 just before, read just after), its
+    launches a forward (counts read just before and just after), its
     outputs; then its wall, as a CUDA graph and its device time at batch 1,
     beside the eager model's. Returns the launches of the checked forwards."""
     from soccdpt_torch.cli.run_exported import load_program
@@ -3784,11 +3732,11 @@ def check_program(torch, card, key, path, model_type, eager, size, with_points, 
     for B in (1, 2):
         g = torch.Generator(device="cuda").manual_seed(100 + B)
         x = torch.randn(B, 3, size, size, device="cuda", generator=g)
-        reset_counts(counters)
+        before = counts(counters)
         with torch.no_grad():
             got = module(x)
         torch.cuda.synchronize()
-        per = {name: fn.launches for name, fn in counters.items()}
+        per = since(before)
         for name in launched:
             launched[name] += per[name]
         with torch.no_grad():
@@ -3871,7 +3819,8 @@ def deploy_exports(torch, card, tmp, counters, record):
                 log(f"run_exported {B} (a fresh process, {run['seconds']:.1f} s): "
                     f"{run['outputs']}; launches a forward {run['launches_per_forward']}; "
                     f"{run['line']} ({card})")
-                if run["launches_per_forward"] != DEPLOY_PER_FORWARD[model_type]:
+                want_per = DEPLOY_PER_FORWARD[model_type]
+                if {k: run["launches_per_forward"][k] for k in want_per} != want_per:
                     fail(f"run_exported {B}: launches a forward {run['launches_per_forward']}")
             want = {"b1": "outputs: (1, 256, 256) (1, 3, 256, 256)",
                     "b2": "outputs: (2, 256, 256) (2, 3, 256, 256)"}
@@ -3910,11 +3859,11 @@ def deploy_eval_others(torch, card, tree, pth, program, counters, record):
                        lambda: eo.builtin_adapter(DEPLOY_FLAGSHIP, load=str(pth))),
                       ("eval_others_pt2", lambda: eo.load_adapter(f"pt2:{program}"))):
         adapter = make()
-        reset_counts(counters)
+        before = counts(counters)
         t0 = time.perf_counter()
         metrics[key] = eo.evaluate_adapter(adapter, dataset, EVAL_OTHERS_SAMPLES)
         seconds[key] = time.perf_counter() - t0
-        launches[key] = {name: fn.launches for name, fn in counters.items()}
+        launches[key] = since(before)
         del adapter
         if launches[key]["window_attention"] != 12 * EVAL_OTHERS_SAMPLES:
             fail(f"{key}: launches {launches[key]}, expected K1 12 times a sample")
@@ -4104,8 +4053,8 @@ def deploy_dispatch(torch, card, record):
 
 def phase_deploy(torch, card, tmp, tree):
     """Phase 9 on the card; returns the launches of its paths (each path's
-    counts set to 0 just before it and read just after)."""
-    counters = deploy_counters()
+    counts read just before it and just after)."""
+    counters = tuple(DEPLOY_PER_FORWARD[DEPLOY_FLAGSHIP])
     record = RECORD.setdefault("deploy", {})
     with phase("export and run_exported"):
         launches, pth, program = deploy_exports(torch, card, tmp, counters, record)
@@ -4215,7 +4164,6 @@ def _parallel_rank(rank, world, store, out):
 
     from soccdpt_torch.core.config import ModelConfig, TrainConfig
     from soccdpt_torch.data.synthetic import make_batch
-    from soccdpt_torch.kernels import window_attention as wa
     from soccdpt_torch.parallel import mesh as mesh_lib
     from soccdpt_torch.train.trainer import Trainer
 
@@ -4233,13 +4181,13 @@ def _parallel_rank(rank, world, store, out):
                               mesh=mesh)
             state = trainer.init_state(seed=0)
             no_dropout(trainer.model)
-            wa.window_attention.launches = 0
+            before = counts(["window_attention"])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, metrics = trainer.train_step(state, batch)
             torch.cuda.synchronize()
             step_ms = (time.perf_counter() - t0) * 1e3
-            launches = wa.window_attention.launches
+            launches = since(before)["window_attention"]
             # after the gradients' all-reduce, the sharded update and its
             # gather: every leaf, the gathered moments, every statistic
             got = train_snapshot(torch, trainer, trainer.gather_state(state))
@@ -4271,7 +4219,6 @@ def phase_parallel(torch, card):
 
     from soccdpt_torch.core.config import ModelConfig, TrainConfig
     from soccdpt_torch.data.synthetic import make_batch
-    from soccdpt_torch.kernels import window_attention as wa
     from soccdpt_torch.parallel import mesh as mesh_lib
     from soccdpt_torch.train.trainer import Trainer
     from soccdpt_torch.weights import named_flax_params
@@ -4310,14 +4257,14 @@ def phase_parallel(torch, card):
         out, walls = {}, {"plain": [], "mesh": []}
         for name, trainer in runs.items():
             gen = torch.Generator(device="cuda").manual_seed(0)
-            wa.window_attention.launches = 0
+            before = counts(["window_attention"])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             states[name], metrics = trainer.train_step(states[name], batch, gen)
             torch.cuda.synchronize()
             walls.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
             out[name] = {"loss": float(metrics["loss"]),
-                         "launches": wa.window_attention.launches}
+                         "launches": since(before)["window_attention"]}
         launches = out["mesh"]["launches"]
         if any(o["launches"] != 12 for o in out.values()):
             fail(f"parallel: K1 ran {[o['launches'] for o in out.values()]} times in a step "

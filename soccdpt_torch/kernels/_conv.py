@@ -2,7 +2,7 @@
 ``fused_fusion``, K5 ``fused_head``) share: argument checks, the weights
 in the kernels' layout, the guard against gradients, the tile choice of
 the f32 route on CUDA cores (``pick_tile``), and the launch planners and
-calls of the bf16 route on the tensor cores (``plan_conv`` and
+C entries of the bf16 route on the tensor cores (``plan_conv`` and
 ``conv_bf16`` for K3/K4, ``plan_head`` and ``prepare_head_bf16`` for K5:
 ``csrc/conv_wgmma.cuh``).
 
@@ -22,9 +22,9 @@ import torch
 import torch.nn as nn
 
 from . import _build
+from ._build import I64, INT, PTR
 
 MAX_SMEM_BYTES = 232448  # per block on sm_90
-SMS = 132  # streaming multiprocessors of an H100 SXM
 TILES = (8, 4)  # square tiles of the f32 route, largest first
 KC, CO = 8, 64  # staged input channels and output channels per chunk (conv_common.cuh)
 
@@ -112,18 +112,32 @@ def pick_tile(B: int, H: int, W: int, smem_bytes: Callable[[int], int],
     if not fits:
         raise ValueError(f"no tile fits in shared memory ({smem_bytes(TILES[-1])} B)")
     for t in fits:
-        if B * -(-H // t) * -(-W // t) >= SMS:
+        if B * -(-H // t) * -(-W // t) >= _build.SMS:
             return t
     return fits[-1]
 
 
-def call(lib: ctypes.CDLL, name: str, tensors, ints, stream) -> int:
-    """Call C entry ``name`` with pointer arguments (``None`` for a null
-    pointer), int arguments and a stream, and return its CUDA error code."""
-    fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn(*[None if t is None else t.data_ptr() for t in tensors], *ints, stream)
+def _array(kind, values):
+    """A host array of C ``kind`` holding ``values``."""
+    return (kind * len(values))(*values)
+
+
+def _in_both(symbol: str, types, what: str):
+    """A C entry of ``csrc/conv_wgmma_entries.cuh``, which K3's and K4's
+    libraries both hold, by library."""
+    return {lib: _build.Entry(lib, symbol, types, what) for lib in ("fused_rcu", "fused_fusion")}
+
+
+_P = ctypes.POINTER
+_CONV_BF16 = _in_both("soccdpt_conv_bf16", [PTR] * 7 + [INT] * 8,
+                      "tensor-core convolution kernel")
+_PREPARE_BF16 = _in_both(
+    "soccdpt_prepare_bf16", [INT, _P(PTR), _P(I64), _P(INT), _P(INT), _P(PTR), PTR, INT, INT],
+    "weight preparation kernel")
+_PREPARE_HEAD_BF16 = _build.Entry(
+    "fused_head", "soccdpt_prepare_head_bf16",
+    [PTR, _P(I64), INT, PTR, _P(PTR), _P(I64), _P(INT), _P(INT), PTR, INT, INT, INT],
+    "head weight preparation kernel")
 
 
 # --- the bf16 route: one tensor-core convolution a launch --------------------------------
@@ -176,7 +190,7 @@ def plan_conv(B: int, H: int, W: int, C: int, taps: int) -> ConvPlan:
     """The launch of one bf16 convolution: the largest tile of
     ``WGMMA_TILES`` that gives at least half the SMs a CTA without splitting
     K; where none does, the tile with the most CTAs and K split by the
-    smallest divisor of its K-steps that reaches ``SMS`` CTAs, but into runs
+    smallest divisor of its K-steps that reaches ``_build.SMS`` CTAs, but into runs
     of no fewer than ``MIN_SPLIT_KSTEPS`` K-steps.
 
     Both thresholds are measured by chip_smoke.py's plan check (PERF.md, K3;
@@ -194,12 +208,12 @@ def plan_conv(B: int, H: int, W: int, C: int, taps: int) -> ConvPlan:
 
     plans = [plan(i) for i in range(len(WGMMA_TILES))]
     for p in plans:
-        if 2 * p.ctas >= SMS:
+        if 2 * p.ctas >= _build.SMS:
             return p
     most = max(plans, key=lambda p: p.ctas)
     divisors = [d for d in range(1, ksteps + 1)
                 if ksteps % d == 0 and ksteps // d >= min(MIN_SPLIT_KSTEPS, ksteps)]
-    splits = next((d for d in divisors if most.tiles * d >= SMS), divisors[-1])
+    splits = next((d for d in divisors if most.tiles * d >= _build.SMS), divisors[-1])
     return dataclasses.replace(most, splits=splits)
 
 
@@ -222,7 +236,7 @@ def plan_head(B: int, H: int, W: int, Ci: int, Cm: int) -> ConvPlan:
     plans = [ConvPlan(config, -(-H // box_h), -(-W // box_w), B, 1, ksteps, 1,
                       walk=-(-Cm // bn), head=True)
              for config, (box_h, box_w, tile_bn) in enumerate(HEAD_TILES) if tile_bn == bn]
-    return next((p for p in plans if 2 * p.ctas >= SMS), plans[-1])
+    return next((p for p in plans if 2 * p.ctas >= _build.SMS), plans[-1])
 
 
 def head_columns(Cm: int) -> int:
@@ -231,7 +245,7 @@ def head_columns(Cm: int) -> int:
     return -(-Cm // 8) * 8
 
 
-def prepare_head_bf16(lib: ctypes.CDLL, like: torch.Tensor, w2: torch.Tensor, vectors):
+def prepare_head_bf16(like: torch.Tensor, w2: torch.Tensor, vectors):
     """K5's one preparation launch: w2 (3, 3, Ci, Cm) (any strides, f32 or
     bf16) to bf16 ``[9][Ci][Cw]`` with zero columns past Cm, and the
     vectors b2 (Cm), w3 (Cm or (1, 1, Cm, 1)) and b3 (a scalar or (1,))
@@ -243,24 +257,19 @@ def prepare_head_bf16(lib: ctypes.CDLL, like: torch.Tensor, w2: torch.Tensor, ve
     vecs = [_as_read(v, like).reshape(-1) for v in vectors]
     w_out = torch.empty((9, Ci, Cw), dtype=torch.bfloat16, device=like.device)
     vec_out = torch.empty((3, Cw), dtype=torch.float32, device=like.device)
-    fn = lib.soccdpt_prepare_head_bf16
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    args = [(ctypes.c_longlong * 4)(*w2.stride()),
-            (ctypes.c_void_p * 3)(*[v.data_ptr() for v in vecs]),
-            (ctypes.c_longlong * 3)(*[v.stride(0) for v in vecs]),
-            (ctypes.c_int * 3)(*[v.numel() for v in vecs]),
-            (ctypes.c_int * 3)(*[int(v.dtype == torch.bfloat16) for v in vecs])]
-    a = [ctypes.cast(x, ctypes.c_void_p) for x in args]
-    rc = fn(w2.data_ptr(), a[0], int(w2.dtype == torch.bfloat16), w_out.data_ptr(), *a[1:],
-            vec_out.data_ptr(), Ci, Cm, Cw, torch.cuda.current_stream(like.device).cuda_stream)
-    _build.check(lib, rc, "head weight preparation kernel")
+    _PREPARE_HEAD_BF16(like.device, w2, _array(I64, w2.stride()),
+                       int(w2.dtype == torch.bfloat16), w_out,
+                       _array(PTR, [v.data_ptr() for v in vecs]),
+                       _array(I64, [v.stride(0) for v in vecs]),
+                       _array(INT, [v.numel() for v in vecs]),
+                       _array(INT, [int(v.dtype == torch.bfloat16) for v in vecs]),
+                       vec_out, Ci, Cm, Cw)
     return w_out, vec_out
 
 
-def prepare_bf16(lib: ctypes.CDLL, like: torch.Tensor, weights, scratch: "Scratch"):
-    """The one launch that prepares a bf16 call: each HWIO weight
+def prepare_bf16(lib: str, like: torch.Tensor, weights, scratch: "Scratch"):
+    """The one launch that prepares a bf16 call of library ``lib``
+    (``fused_rcu`` or ``fused_fusion``): each HWIO weight
     ``(3, 3, C, C)`` or ``(1, 1, C, C)`` (any strides, f32 or bf16; a port module's OIHW
     weight seen through ``conv_weights`` is one) to bf16 ``[tap][C][C]`` as
     the tensor-core convolution reads it, and the split-K counters of
@@ -269,23 +278,14 @@ def prepare_bf16(lib: ctypes.CDLL, like: torch.Tensor, weights, scratch: "Scratc
     views = [_as_read(w, like) for w in weights]
     outs = [torch.empty((v.shape[0] * v.shape[1], C, C), dtype=torch.bfloat16, device=like.device)
             for v in views]
-    n = len(views)
-    fn = lib.soccdpt_prepare_bf16
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    args = [(ctypes.c_void_p * n)(*[v.data_ptr() for v in views]),
-            (ctypes.c_longlong * (4 * n))(*[st for v in views for st in v.stride()]),
-            (ctypes.c_int * n)(*[v.shape[0] * v.shape[1] for v in views]),
-            (ctypes.c_int * n)(*[int(v.dtype == torch.bfloat16) for v in views]),
-            (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])]
     counters = scratch.counters
-    rc = fn(n, *[ctypes.cast(a, ctypes.c_void_p) for a in args],
-            None if counters is None else counters.data_ptr(),
-            0 if counters is None else counters.numel(), C,
-            torch.cuda.current_stream(like.device).cuda_stream)
-    _build.check(lib, rc, "weight preparation kernel")
+    _PREPARE_BF16[lib](like.device, len(views),
+                       _array(PTR, [v.data_ptr() for v in views]),
+                       _array(I64, [st for v in views for st in v.stride()]),
+                       _array(INT, [v.shape[0] * v.shape[1] for v in views]),
+                       _array(INT, [int(v.dtype == torch.bfloat16) for v in views]),
+                       _array(PTR, [o.data_ptr() for o in outs]), counters,
+                       0 if counters is None else counters.numel(), C)
     return outs
 
 
@@ -321,16 +321,14 @@ class Scratch:
         return self.partials, counters
 
 
-def conv_bf16(lib: ctypes.CDLL, plan: ConvPlan, scratch: Scratch, src: torch.Tensor,
+def conv_bf16(lib: str, plan: ConvPlan, scratch: Scratch, src: torch.Tensor,
               w: torch.Tensor, bias: torch.Tensor, out: torch.Tensor, epilogue: int,
               residual: Optional[torch.Tensor] = None) -> None:
-    """One tensor-core convolution of ``src`` (B, H, W, C) into ``out``:
-    ``w`` bf16 (taps, C, C), ``bias`` f32 (C,), ``epilogue`` one of
-    EPI_CONV1, EPI_RESIDUAL (with ``residual``), EPI_BIAS. Raises on a
-    launch error."""
+    """One tensor-core convolution of ``src`` (B, H, W, C) into ``out``
+    through library ``lib``: ``w`` bf16 (taps, C, C), ``bias`` f32 (C,),
+    ``epilogue`` one of EPI_CONV1, EPI_RESIDUAL (with ``residual``),
+    EPI_BIAS. Raises on a launch error."""
     B, H, W, C = src.shape
     partials, counters = scratch.take(plan)
-    rc = call(lib, "soccdpt_conv_bf16", [src, w, bias, residual, out, partials, counters],
-              [B, H, W, C, w.shape[0], epilogue, plan.config, plan.splits],
-              torch.cuda.current_stream(src.device).cuda_stream)
-    _build.check(lib, rc, "tensor-core convolution kernel")
+    _CONV_BF16[lib](src.device, src, w, bias, residual, out, partials, counters, B, H, W, C,
+                    w.shape[0], epilogue, plan.config, plan.splits)

@@ -32,10 +32,11 @@ Bound on the H100: operations (the RCU's two 3x3 convs). Two routes:
 * f32: one launch on CUDA cores; everything between ``s`` and the output
   stays in shared memory; ``tile`` (8 or 4) fixes its square tile of ``s``.
 
-``fused_rcu_tail`` launches the kernels for CUDA tensors and runs
-``fused_rcu_tail_plain`` for CPU tensors; ``fused_rcu_tail.launches``
-counts calls of the op on the card. Forward only, as in JAX; a standalone
-op.
+``fused_rcu_tail`` calls the op ``soccdpt::fused_rcu_tail``
+(``_build.op``), which launches the kernels for CUDA tensors and runs
+``fused_rcu_tail_plain`` for CPU tensors;
+``kernels.ops.launches()["fused_rcu_tail"]`` counts its calls on the card.
+Forward only, as in JAX; a standalone op.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build, upsample
+from ._build import INT, PTR
 from ._conv import (
     CO,
     EPI_BIAS,
@@ -53,7 +55,6 @@ from ._conv import (
     KC,
     Scratch,
     activation,
-    call,
     check_activation,
     check_no_grad,
     check_shape,
@@ -104,37 +105,43 @@ def _launch_f32(s, w1, b1, w2, b2, out_w, out_b, tile):
               kernel_param(w2, (9, C, C), s), kernel_param(b2, (C,), s),
               kernel_param(out_w, (C, C), s), kernel_param(out_b, (C,), s)]
     out = torch.empty((B, 2 * H, 2 * W, C), dtype=s.dtype, device=s.device)
-    lib = _build.load("fused_fusion")
-    rc = call(lib, "soccdpt_fused_fusion", [s, *params, out], [B, H, W, C, tile],
-              torch.cuda.current_stream(s.device).cuda_stream)
-    _build.check(lib, rc, "fusion-block tail kernel")
+    _F32(s.device, s, *params, out, B, H, W, C, tile)
     return out
 
 
 def _launch_bf16(s, w1, b1, w2, b2, out_w, out_b):
     B, H, W, C = s.shape
-    lib = _build.load("fused_fusion")
     plan3, plan1 = plan_conv(B, H, W, C, taps=9), plan_conv(B, H, W, C, taps=1)
     scratch = Scratch([plan3, plan3, plan1], s.device)
-    w1, w2, wo = prepare_bf16(lib, s, [w1, w2, out_w.reshape(1, 1, C, C)], scratch)
+    w1, w2, wo = prepare_bf16("fused_fusion", s, [w1, w2, out_w.reshape(1, 1, C, C)], scratch)
     b1, b2, bo = wgmma_bias(b1, s), wgmma_bias(b2, s), wgmma_bias(out_b, s)
     mid, m, y = (torch.empty_like(s) for _ in range(3))
-    conv_bf16(lib, plan3, scratch, s, w1, b1, mid, EPI_CONV1)
-    conv_bf16(lib, plan3, scratch, mid, w2, b2, m, EPI_RESIDUAL, residual=s)
-    conv_bf16(lib, plan1, scratch, m, wo, bo, y, EPI_BIAS)
+    conv_bf16("fused_fusion", plan3, scratch, s, w1, b1, mid, EPI_CONV1)
+    conv_bf16("fused_fusion", plan3, scratch, mid, w2, b2, m, EPI_RESIDUAL, residual=s)
+    conv_bf16("fused_fusion", plan1, scratch, m, wo, bo, y, EPI_BIAS)
     return upsample.launch(y)
 
 
 def _launch(s, w1, b1, w2, b2, out_w, out_b, tile):
     check_no_grad("fusion-block tail", s, w1, b1, w2, b2, out_w, out_b)
-    _check(s, w1, b1, w2, b2, out_w, out_b)
     s = activation(s)
     if s.dtype == torch.bfloat16:
-        out = _launch_bf16(s, w1, b1, w2, b2, out_w, out_b)
-    else:
-        out = _launch_f32(s, w1, b1, w2, b2, out_w, out_b, tile)
-    fused_rcu_tail.launches += 1
-    return out
+        return _launch_bf16(s, w1, b1, w2, b2, out_w, out_b)
+    return _launch_f32(s, w1, b1, w2, b2, out_w, out_b, tile)
+
+
+def _fused_rcu_tail_fake(s, w1, b1, w2, b2, out_w, out_b, tile):
+    B, H, W, C = s.shape
+    return s.new_empty((B, 2 * H, 2 * W, C))
+
+
+_F32 = _build.Entry("fused_fusion", "soccdpt_fused_fusion", [PTR] * 8 + [INT] * 5,
+                    "fusion-block tail kernel")
+_fused_rcu_tail_op = _build.op(
+    "fused_rcu_tail(Tensor s, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor out_w, "
+    "Tensor out_b, int? tile) -> Tensor", _launch,
+    lambda s, w1, b1, w2, b2, out_w, out_b, tile: fused_rcu_tail_plain(
+        s, w1, b1, w2, b2, out_w, out_b), _fused_rcu_tail_fake)
 
 
 def fused_rcu_tail(
@@ -152,12 +159,7 @@ def fused_rcu_tail(
     ``tile`` (8 or 4, f32 only) fixes the f32 route's square tile of ``s``;
     a bf16 call with a ``tile`` raises ``ValueError``."""
     check_tile(s, tile, "fused_rcu_tail")
-    if s.device.type == "cuda":
-        return _launch(s, w1, b1, w2, b2, out_w, out_b, tile)
-    if s.device.type != "cpu":
+    if s.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_rcu_tail runs on cuda or cpu, not {s.device}")
     _check(s, w1, b1, w2, b2, out_w, out_b)
-    return fused_rcu_tail_plain(s, w1, b1, w2, b2, out_w, out_b)
-
-
-fused_rcu_tail.launches = 0
+    return _fused_rcu_tail_op(s, w1, b1, w2, b2, out_w, out_b, tile)

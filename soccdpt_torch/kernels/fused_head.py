@@ -29,12 +29,14 @@ Two routes, by dtype:
   memory (the kernel blends the tile it convolves straight from ``x``
   into shared memory); f32 products, which the f32 bound (2e-5) needs.
 
-``fused_head_tail`` launches the kernels for CUDA tensors and runs
-``fused_head_tail_plain`` for CPU tensors; ``fused_head_tail.launches``
-counts calls of the op on the card. Gradient: as JAX's ``_fht_bwd`` recomputes through XLA,
-a call whose inputs need a gradient is a ``torch.autograd.Function``
-whose forward is the kernel and whose backward recomputes through the
-plain version and returns its autograd gradients (no kernel).
+``fused_head_tail`` calls the op ``soccdpt::fused_head_tail``
+(``_build.op``), which launches the kernels for CUDA tensors and runs
+``fused_head_tail_plain`` for CPU tensors;
+``kernels.ops.launches()["fused_head_tail"]`` counts its calls on the card.
+Gradient: as JAX's ``_fht_bwd`` recomputes through XLA, a call whose inputs
+need a gradient is a ``torch.autograd.Function`` whose forward is the op
+and whose backward recomputes through the plain version and returns its
+autograd gradients (no kernel).
 """
 from __future__ import annotations
 
@@ -43,9 +45,9 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from . import _build, upsample
+from ._build import INT, PTR
 from ._conv import (
     activation,
-    call,
     check_activation,
     check_shape,
     head_columns,
@@ -84,10 +86,7 @@ def _launch_f32(x, w2, b2, w3, b3):
     params = [kernel_param(w2, (9, Ci, Cm), x), kernel_param(b2, (Cm,), x),
               kernel_param(w3, (Cm,), x), kernel_param(b3, (1,), x)]
     out = torch.empty((B, 2 * H, 2 * W), dtype=x.dtype, device=x.device)
-    lib = _build.load("fused_head")
-    rc = call(lib, "soccdpt_fused_head_f32", [x, *params, out], [B, H, W, Ci, Cm],
-              torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "depth-head tail kernel")
+    _F32(x.device, x, *params, out, B, H, W, Ci, Cm)
     return out
 
 
@@ -96,29 +95,32 @@ def _launch_bf16(x, w2, b2, w3, b3):
     B, H, W, Ci = x.shape
     Cm = w2.shape[-1]
     plan = plan_head(B, 2 * H, 2 * W, Ci, Cm)
-    lib = _build.load("fused_head")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    w, vec = prepare_head_bf16(lib, x, w2, [b2, w3, b3])
+    w, vec = prepare_head_bf16(x, w2, [b2, w3, b3])
     u = upsample.launch(x)
     out = torch.empty((B, 2 * H, 2 * W), dtype=x.dtype, device=x.device)
-    rc = call(lib, "soccdpt_head_conv_bf16", [u, w, vec, out],
-              [B, 2 * H, 2 * W, Ci, Cm, head_columns(Cm), plan.config, plan.walk], stream)
-    _build.check(lib, rc, "depth-head conv kernel")
+    _CONV_BF16(x.device, u, w, vec, out, B, 2 * H, 2 * W, Ci, Cm, head_columns(Cm), plan.config,
+               plan.walk)
     return out
 
 
 def _launch(x, w2, b2, w3, b3):
     x = activation(x)
     launch = _launch_bf16 if x.dtype == torch.bfloat16 else _launch_f32
-    out = launch(x, w2, b2, w3, b3)
-    fused_head_tail.launches += 1
-    return out
+    return launch(x, w2, b2, w3, b3)
 
 
-def _forward(x, w2, b2, w3, b3):
-    if x.device.type == "cuda":
-        return _launch(x, w2, b2, w3, b3)
-    return fused_head_tail_plain(x, w2, b2, w3, b3)
+def _fused_head_tail_fake(x, w2, b2, w3, b3):
+    B, H, W, _ = x.shape
+    return x.new_empty((B, 2 * H, 2 * W))
+
+
+_F32 = _build.Entry("fused_head", "soccdpt_fused_head_f32", [PTR] * 6 + [INT] * 5,
+                    "depth-head tail kernel")
+_CONV_BF16 = _build.Entry("fused_head", "soccdpt_head_conv_bf16", [PTR] * 4 + [INT] * 8,
+                          "depth-head conv kernel")
+_fused_head_tail_op = _build.op(
+    "fused_head_tail(Tensor x, Tensor w2, Tensor b2, Tensor w3, Tensor b3) -> Tensor", _launch,
+    fused_head_tail_plain, _fused_head_tail_fake)
 
 
 class _FusedHeadTail(torch.autograd.Function):
@@ -128,7 +130,7 @@ class _FusedHeadTail(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w2, b2, w3, b3):
         ctx.save_for_backward(x, w2, b2, w3, b3)
-        return _forward(x, w2, b2, w3, b3)
+        return _fused_head_tail_op(x, w2, b2, w3, b3)
 
     @staticmethod
     @once_differentiable
@@ -161,7 +163,4 @@ def fused_head_tail(
     _check(x, w2, b2, w3, b3)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w2, b2, w3, b3)):
         return _FusedHeadTail.apply(x, w2, b2, w3, b3)
-    return _forward(x, w2, b2, w3, b3)
-
-
-fused_head_tail.launches = 0
+    return _fused_head_tail_op(x, w2, b2, w3, b3)

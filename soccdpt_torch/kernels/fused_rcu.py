@@ -27,9 +27,10 @@ against 4 MB of bf16 activations and weights. Two routes:
   tile. The tensor cores would round f32 to TF32, about three digits,
   where the Pallas tests hold f32 to 2e-4.
 
-``fused_rcu`` launches the kernels for CUDA tensors and runs
-``fused_rcu_plain`` for CPU tensors; ``fused_rcu.launches`` counts calls
-of the op on the card. Like the Pallas kernel it is forward only: a CUDA
+``fused_rcu`` calls the op ``soccdpt::fused_rcu`` (``_build.op``), which
+launches the kernels for CUDA tensors and runs ``fused_rcu_plain`` for CPU
+tensors; ``kernels.ops.launches()["fused_rcu"]`` counts its calls on the
+card. Like the Pallas kernel it is forward only: a CUDA
 call that would need a gradient raises. The JAX package wires it into no
 model, and neither does the port: it is a standalone op.
 """
@@ -41,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._build import INT, PTR
 from ._conv import (
     CO,
     EPI_CONV1,
@@ -48,7 +50,6 @@ from ._conv import (
     KC,
     Scratch,
     activation,
-    call,
     check_activation,
     check_no_grad,
     check_shape,
@@ -93,37 +94,35 @@ def _launch_f32(x, w1, b1, w2, b2, tile):
     params = [kernel_param(w1, (9, C, C), x), kernel_param(b1, (C,), x),
               kernel_param(w2, (9, C, C), x), kernel_param(b2, (C,), x)]
     out = torch.empty_like(x)
-    lib = _build.load("fused_rcu")
-    rc = call(lib, "soccdpt_fused_rcu", [x, *params, out], [B, H, W, C, tile],
-              torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "fused RCU kernel")
+    _F32(x.device, x, *params, out, B, H, W, C, tile)
     return out
 
 
 def _launch_bf16(x, w1, b1, w2, b2, plan):
     """The bf16 route with both convolutions launched as ``plan`` says
     (``plan_conv`` of x's shape; chip_smoke.py times its neighbours)."""
-    C = x.shape[-1]
-    lib = _build.load("fused_rcu")
     scratch = Scratch([plan, plan], x.device)
-    w1, w2 = prepare_bf16(lib, x, [w1, w2], scratch)
+    w1, w2 = prepare_bf16("fused_rcu", x, [w1, w2], scratch)
     b1, b2 = wgmma_bias(b1, x), wgmma_bias(b2, x)
     mid, out = torch.empty_like(x), torch.empty_like(x)
-    conv_bf16(lib, plan, scratch, x, w1, b1, mid, EPI_CONV1)
-    conv_bf16(lib, plan, scratch, mid, w2, b2, out, EPI_RESIDUAL, residual=x)
+    conv_bf16("fused_rcu", plan, scratch, x, w1, b1, mid, EPI_CONV1)
+    conv_bf16("fused_rcu", plan, scratch, mid, w2, b2, out, EPI_RESIDUAL, residual=x)
     return out
 
 
 def _launch(x, w1, b1, w2, b2, tile):
     check_no_grad("fused RCU", x, w1, b1, w2, b2)
-    _check(x, w1, b1, w2, b2)
     x = activation(x)
     if x.dtype == torch.bfloat16:
-        out = _launch_bf16(x, w1, b1, w2, b2, plan_conv(*x.shape, taps=9))
-    else:
-        out = _launch_f32(x, w1, b1, w2, b2, tile)
-    fused_rcu.launches += 1
-    return out
+        return _launch_bf16(x, w1, b1, w2, b2, plan_conv(*x.shape, taps=9))
+    return _launch_f32(x, w1, b1, w2, b2, tile)
+
+
+_F32 = _build.Entry("fused_rcu", "soccdpt_fused_rcu", [PTR] * 6 + [INT] * 5, "fused RCU kernel")
+_fused_rcu_op = _build.op(
+    "fused_rcu(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, int? tile) -> Tensor",
+    _launch, lambda x, w1, b1, w2, b2, tile: fused_rcu_plain(x, w1, b1, w2, b2),
+    lambda x, w1, b1, w2, b2, tile: x.new_empty(x.shape))
 
 
 def fused_rcu(
@@ -140,12 +139,7 @@ def fused_rcu(
     default it is the largest that fits and still gives every SM a block.
     A bf16 call with a ``tile`` raises ``ValueError``."""
     check_tile(x, tile, "fused_rcu")
-    if x.device.type == "cuda":
-        return _launch(x, w1, b1, w2, b2, tile)
-    if x.device.type != "cpu":
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_rcu runs on cuda or cpu, not {x.device}")
     _check(x, w1, b1, w2, b2)
-    return fused_rcu_plain(x, w1, b1, w2, b2)
-
-
-fused_rcu.launches = 0
+    return _fused_rcu_op(x, w1, b1, w2, b2, tile)

@@ -62,19 +62,13 @@ so each thread loads the elements its sums hold, a tile ahead. Without a
 bias (plain ViT) the products bound both. The designs are described in
 the CUDA sources.
 
-K6's forward is two custom ops (``torch.library``):
-``soccdpt::global_attention`` gives the output and
-``soccdpt::global_attention_with_lse`` the output and each row's
-log-sum-exp. Their CUDA implementations launch the kernel, their CPU
-implementations are the plain versions, and fake implementations give the
-outputs' shapes and dtypes, so ``torch.export`` records a call as one node
-and an exported program launches K6 when it runs on the card. A device
-with no implementation raises. K7 is launched by the ``autograd.Function``
-as before.
-
-``global_attention`` launches the kernels for CUDA tensors and runs the
-plain versions for CPU tensors; ``global_attention.launches`` counts K6's
-launches and ``global_attention_backward.launches`` K7's.
+K6's forward is two ops (``_build.op``): ``soccdpt::global_attention``
+gives the output and ``soccdpt::global_attention_with_lse`` the output and
+each row's log-sum-exp; K7 is ``soccdpt::global_attention_backward``. Their
+CUDA implementations launch the kernels and their CPU implementations are
+the plain versions, so an exported program launches K6 when it runs on the
+card. ``global_attention`` calls the ops; ``kernels.ops.launches()`` counts
+each op's launches.
 """
 from __future__ import annotations
 
@@ -86,6 +80,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from ._build import F32, I64, INT, PTR
 
 SUPPORTED_D = (16, 32, 64, 128)
 
@@ -93,10 +88,10 @@ SUPPORTED_D = (16, 32, 64, 128)
 # for the planner: keys a forward tile and its ring's stages, keys a tile
 # of the dq kernel, queries a tile and warpgroups (of 64 keys) of the dk/dv
 # kernel, the backward rings' stages, the room of a query tile's
-# statistics, a block's shared memory and the H100's streaming
-# multiprocessors. K6's CTA is one warpgroup of 64 query rows, two to an SM.
+# statistics and a block's shared memory. K6's CTA is one warpgroup of 64
+# query rows, two to an SM.
 FWD_KT, FWD_STAGES, DQ_KT, DKV_QT, DKV_NWG, BWD_STAGES, STATS_BYTES = 64, 3, 32, 32, 2, 2, 1024
-MAX_SMEM_BYTES, SMS = 232448, 132
+MAX_SMEM_BYTES = 232448
 
 
 def padded(D: int) -> int:
@@ -264,14 +259,6 @@ def _bias_kind(bias) -> int:
     return 1 if bias.dtype == torch.float32 else 2
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
 def _geometry(*tensors: torch.Tensor):
     """The tensor maps' geometry of the tensors in turn, as a C array."""
     flat = [x for t in tensors for x in tma_geometry(t)]
@@ -286,6 +273,19 @@ def _as_read(q, k, v, bias):
     return as_read(q), as_read(k), as_read(v), None if bias is None else bias.contiguous()
 
 
+_GEOM = ctypes.POINTER(I64)
+_FWD_F32 = _build.Entry("global_attention", "soccdpt_global_attention_f32",
+                        [PTR] * 6 + [INT] * 5 + [F32], "global attention kernel")
+_FWD_BF16 = _build.Entry("global_attention", "soccdpt_global_attention_bf16",
+                         [PTR] * 3 + [_GEOM] + [PTR] * 3 + [INT] * 5 + [F32],
+                         "global attention kernel")
+_BWD_F32 = _build.Entry("global_attention_bwd", "soccdpt_global_attention_bwd_f32",
+                        [PTR] * 12 + [INT] * 5 + [F32], "global attention backward kernel")
+_BWD_BF16 = _build.Entry("global_attention_bwd", "soccdpt_global_attention_bwd_bf16",
+                         [PTR] * 4 + [_GEOM] + [PTR] * 8 + [INT] * 5 + [F32, INT],
+                         "global attention backward kernel")
+
+
 def _launch(q, k, v, bias, scale, want_lse=False):
     """K6 on CUDA tensors: ``(out, lse, (q, k, v, bias) as the kernel read
     them)``; ``lse`` (B, H, T) f32 only when ``want_lse``. bf16 runs the
@@ -293,33 +293,20 @@ def _launch(q, k, v, bias, scale, want_lse=False):
     B, H, T, d = q.shape
     q, k, v, bias = _as_read(q, k, v, bias)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if want_lse else None
-    lib = _build.load("global_attention")
+    out = torch.empty((B, H, T, d), dtype=q.dtype, device=q.device)
     if q.dtype == torch.bfloat16:
-        out = torch.empty((B, H, T, d), dtype=q.dtype, device=q.device)
         plan_attention(B, H, T, d)  # raises on what the route cannot take
-        fn = lib.soccdpt_global_attention_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _geometry(q, k, v), _ptr(bias),
-                out.data_ptr(), _ptr(lse), B, H, T, d, _bias_kind(bias), float(scale),
-                _stream(q))
+        _FWD_BF16(q.device, q, k, v, _geometry(q, k, v), bias, out, lse, B, H, T, d,
+                  _bias_kind(bias), float(scale))
     else:
-        out = torch.empty_like(q)
-        fn = lib.soccdpt_global_attention_f32
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(lse),
-                B, H, T, d, _bias_kind(bias), float(scale), _stream(q))
-    _build.check(lib, rc, "global attention kernel")
-    global_attention.launches += 1
+        _FWD_F32(q.device, q, k, v, bias, out, lse, B, H, T, d, _bias_kind(bias), float(scale))
     return out, lse, (q, k, v, bias)
 
 
 def _launch_backward(q, k, v, bias, out, lse, g, scale, want_dbias, img=None):
-    """K7 on CUDA tensors (q, k, v, bias, out as K6 read and wrote them);
-    ``img`` overrides the planner's images a dq CTA holds (bf16)."""
+    """K7 on CUDA tensors (q, k, v, bias, out as K6 read and wrote them):
+    ``(dq, dk, dv, dbias or None)``; ``img`` overrides the planner's images
+    a dq CTA holds (bf16)."""
     B, H, T, d = q.shape
     g = _aligned(g.to(q.dtype))
     dq, dk, dv = (torch.empty((B, H, T, d), dtype=q.dtype, device=q.device) for _ in range(3))
@@ -327,27 +314,13 @@ def _launch_backward(q, k, v, bias, out, lse, g, scale, want_dbias, img=None):
     dbias = None
     if want_dbias:
         dbias = torch.empty((H, T, T), dtype=torch.float32, device=q.device)
-    lib = _build.load("global_attention_bwd")
     if q.dtype == torch.bfloat16:
         plan = plan_attention(B, H, T, d, img=img)
-        fn = lib.soccdpt_global_attention_bwd_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
-                       + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _geometry(q, k, v, g),
-                out.data_ptr(), _ptr(bias), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), _ptr(dbias), B, H, T, d, _bias_kind(bias),
-                float(scale), plan.img, _stream(q))
+        _BWD_BF16(q.device, q, k, v, g, _geometry(q, k, v, g), out, bias, lse, delta, dq, dk,
+                  dv, dbias, B, H, T, d, _bias_kind(bias), float(scale), plan.img)
     else:
-        fn = lib.soccdpt_global_attention_bwd_f32
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(), _ptr(bias),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                _ptr(dbias), B, H, T, d, _bias_kind(bias), float(scale), _stream(q))
-    _build.check(lib, rc, "global attention backward kernel")
-    global_attention_backward.launches += 1
+        _BWD_F32(q.device, q, k, v, g, out, bias, lse, delta, dq, dk, dv, dbias, B, H, T, d,
+                 _bias_kind(bias), float(scale))
     if want_dbias:
         dbias = dbias.to(bias.dtype)
     return dq, dk, dv, dbias
@@ -360,50 +333,57 @@ def _lse_plain(q, k, bias, scale):
     return torch.logsumexp(s, dim=-1)
 
 
-def _global_attention_cuda(q, k, v, bias, scale):
-    return _launch(q, k, v, bias, scale)[0]
-
-
-def _global_attention_with_lse_cuda(q, k, v, bias, scale):
-    out, lse, _ = _launch(q, k, v, bias, scale, want_lse=True)
-    return out, lse
-
-
 def _global_attention_with_lse_cpu(q, k, v, bias, scale):
     return global_attention_plain(q, k, v, bias, scale), _lse_plain(q, k, bias, scale)
 
 
-# The custom ops, registered through ``torch.library.Library`` (cheaper to
-# call than ``torch.library.custom_op``: kernels/window_attention.py)
-_LIB = torch.library.Library("soccdpt", "FRAGMENT")
-_LIB.define("global_attention(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale) -> Tensor")
-_LIB.define(
-    "global_attention_with_lse(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale)"
-    " -> (Tensor, Tensor)"
-)
-_LIB.impl("global_attention", _global_attention_cuda, "CUDA")
-_LIB.impl("global_attention", global_attention_plain, "CPU")
-_LIB.impl("global_attention_with_lse", _global_attention_with_lse_cuda, "CUDA")
-_LIB.impl("global_attention_with_lse", _global_attention_with_lse_cpu, "CPU")
-
-
-@torch.library.register_fake("soccdpt::global_attention", lib=_LIB)
-def _global_attention_fake(q, k, v, bias, scale):
+def _forward_fake(q, k, v, bias, scale):
     return v.new_empty(q.shape)
 
 
-@torch.library.register_fake("soccdpt::global_attention_with_lse", lib=_LIB)
-def _global_attention_with_lse_fake(q, k, v, bias, scale):
-    return v.new_empty(q.shape), q.new_empty(q.shape[:3], dtype=torch.float32)
+_global_attention_op = _build.op(
+    "global_attention(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale) -> Tensor",
+    lambda q, k, v, bias, scale: _launch(q, k, v, bias, scale)[0], global_attention_plain,
+    _forward_fake)
+_global_attention_with_lse_op = _build.op(
+    "global_attention_with_lse(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale)"
+    " -> (Tensor, Tensor)",
+    lambda q, k, v, bias, scale: _launch(q, k, v, bias, scale, want_lse=True)[:2],
+    _global_attention_with_lse_cpu,
+    lambda q, k, v, bias, scale: (_forward_fake(q, k, v, bias, scale),
+                                  q.new_empty(q.shape[:3], dtype=torch.float32)))
 
 
-_global_attention_op = torch.ops.soccdpt.global_attention.default
-_global_attention_with_lse_op = torch.ops.soccdpt.global_attention_with_lse.default
+def _backward_cuda(q, k, v, bias, out, lse, g, scale, want_dbias):
+    """K7, after K6 where the forward's ``out`` and ``lse`` are not given.
+    The op returns an empty dbias where none is asked for (or there is no
+    bias): its schema has no optional output."""
+    q, k, v, bias = _as_read(q, k, v, bias)
+    if out is None or lse is None:
+        out, lse = _global_attention_with_lse_op(q, k, v, bias, scale)
+    dq, dk, dv, dbias = _launch_backward(q, k, v, bias, _aligned(out), lse.contiguous(), g,
+                                         scale, want_dbias and bias is not None)
+    return dq, dk, dv, q.new_empty((0,)) if dbias is None else dbias
+
+
+def _backward_cpu(q, k, v, bias, out, lse, g, scale, want_dbias):
+    dq, dk, dv, dbias = global_attention_backward_plain(q, k, v, bias, scale, g)
+    return dq, dk, dv, dbias if want_dbias and bias is not None else q.new_empty((0,))
+
+
+def _backward_fake(q, k, v, bias, out, lse, g, scale, want_dbias):
+    dbias = bias.new_empty(bias.shape) if want_dbias and bias is not None else q.new_empty((0,))
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape), dbias
+
+
+_global_attention_backward_op = _build.op(
+    "global_attention_backward(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor? out, "
+    "Tensor? lse, Tensor g, float scale, bool want_dbias) -> (Tensor, Tensor, Tensor, Tensor)",
+    _backward_cuda, _backward_cpu, _backward_fake)
 
 
 class _GlobalAttention(torch.autograd.Function):
-    """Forward K6 (the custom op), backward K7 on CUDA tensors; the plain
-    versions on CPU tensors."""
+    """Forward K6, backward K7 (the ops: the plain versions on CPU tensors)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
@@ -412,7 +392,7 @@ class _GlobalAttention(torch.autograd.Function):
             # saved as the kernel read them, so the backward reads the same
             q, k, v, bias = _as_read(q, k, v, bias)
             out, lse = _global_attention_with_lse_op(q, k, v, bias, scale)
-        else:
+        else:  # the plain backward needs no log-sum-exp
             out, lse = _global_attention_op(q, k, v, bias, scale), None
         ctx.save_for_backward(q, k, v, bias, out, lse)
         return out
@@ -422,12 +402,8 @@ class _GlobalAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, bias, out, lse = ctx.saved_tensors
         want_dbias = bias is not None and ctx.needs_input_grad[3]
-        if q.device.type == "cuda":
-            dq, dk, dv, dbias = _launch_backward(
-                q, k, v, bias, out, lse, g, ctx.scale, want_dbias
-            )
-        else:
-            dq, dk, dv, dbias = global_attention_backward_plain(q, k, v, bias, ctx.scale, g)
+        dq, dk, dv, dbias = _global_attention_backward_op(q, k, v, bias, out, lse, g, ctx.scale,
+                                                          want_dbias)
         return dq, dk, dv, dbias if want_dbias else None, None
 
 
@@ -450,17 +426,11 @@ def global_attention_backward(
     callable by itself. ``out`` and ``lse`` are the forward's
     (``global_attention_with_lse``); without them the forward runs first."""
     check_args(q, k, v, bias)
-    want_dbias = want_dbias and bias is not None
-    if q.device.type == "cuda":
-        if out is None or lse is None:
-            out, lse, (q, k, v, bias) = _launch(q, k, v, bias, scale, want_lse=True)
-        else:
-            q, k, v, bias = _as_read(q, k, v, bias)
-            out = _aligned(out)
-        return _launch_backward(q, k, v, bias, out, lse.contiguous(), g, scale, want_dbias)
-    if q.device.type != "cpu":
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"global attention runs on cuda or cpu, not {q.device}")
-    dq, dk, dv, dbias = global_attention_backward_plain(q, k, v, bias, scale, g)
+    want_dbias = want_dbias and bias is not None
+    dq, dk, dv, dbias = _global_attention_backward_op(q, k, v, bias, out, lse, g, scale,
+                                                      want_dbias)
     return dq, dk, dv, dbias if want_dbias else None
 
 
@@ -483,7 +453,3 @@ def global_attention(
     ):
         return _GlobalAttention.apply(q, k, v, bias, scale)
     return _global_attention_op(q, k, v, bias, scale)
-
-
-global_attention.launches = 0
-global_attention_backward.launches = 0

@@ -1,47 +1,43 @@
-"""The ``soccdpt::`` custom ops that an exported program calls.
+"""The ``soccdpt::`` ops: every hand-written kernel, and their counts.
 
-Importing this module registers them with ``torch.library`` and imports no
-model code: a program written by ``cli/export.py`` is loaded with
-``torch.export.load`` after it, in a process that knows nothing else of
-the package (``cli/run_exported.py``).
+Importing this module registers every kernel's op (``_build.op``) and
+imports no model code: a program written by ``cli/export.py`` is loaded
+with ``torch.export.load`` after it, in a process that knows nothing else
+of the package (``cli/run_exported.py``).
 
-* ``soccdpt::window_attention`` is K1 (``kernels/window_attention.py``),
-  the attention of every Swin-V2 block;
-* ``soccdpt::global_attention`` and ``soccdpt::global_attention_with_lse``
-  are K6 (``kernels/global_attention.py``), the attention of every
-  ViT/BEiT block;
-* ``soccdpt::upsample2x`` (``kernels/upsample.py``) is the DPT decoder's
-  and heads' bf16 2x bilinear upsample;
-* ``soccdpt::unproject_slots`` (``kernels/unproject_slots.py``) is the
-  geometry tail: inverse depth at camera resolution to points and the
-  voxelizer's slot keys.
+* ``window_attention``: K1 (``kernels/window_attention.py``), the
+  attention of every Swin-V2 block;
+* ``global_attention``, ``global_attention_with_lse`` and
+  ``global_attention_backward``: K6 and K7 (``kernels/global_attention.py``),
+  the attention of every ViT/BEiT block and its gradient;
+* ``segment_sum`` and ``segment_sum_backward``: K2
+  (``kernels/segment_sum.py``), the voxelizer's accumulation and its
+  gradient;
+* ``fused_rcu``, ``fused_rcu_tail`` and ``fused_head_tail``: K3, K4 and K5
+  (``kernels/fused_rcu.py``, ``fused_fusion.py``, ``fused_head.py``), the
+  DPT decoder's fused convolutions;
+* ``upsample2x`` (``kernels/upsample.py``): the DPT decoder's and heads'
+  bf16 2x bilinear upsample;
+* ``unproject_slots`` (``kernels/unproject_slots.py``): the geometry tail,
+  inverse depth at camera resolution to points and the voxelizer's slot
+  keys.
 
-On CUDA tensors each launches its hand-written kernel, whose library
-``nvcc`` builds from ``soccdpt_torch/csrc/`` at the first launch; on CPU
-tensors each runs its plain PyTorch version.
+On CUDA tensors each launches its kernels, whose library ``nvcc`` builds
+from ``soccdpt_torch/csrc/`` at the first launch; on CPU tensors each runs
+its plain PyTorch version. ``launches()`` counts each op's calls on the
+card, ``fallbacks()`` the card's calls that ``ops/resize.py`` and
+``ops/geometry.py`` left to the plain path (``count_fallback``).
 """
 from __future__ import annotations
 
-from typing import Dict
-
-from .global_attention import global_attention
-from .unproject_slots import unproject_slots
-from .upsample import upsample2x
-from .window_attention import window_attention
-
-# the function whose ``launches`` counts each kernel's launches
-COUNTERS = {"window_attention": window_attention, "global_attention": global_attention,
-            "upsample2x": upsample2x, "unproject_slots": unproject_slots}
-
-
-def launches() -> Dict[str, int]:
-    """The kernels' launch counts so far."""
-    return {name: fn.launches for name, fn in COUNTERS.items()}
-
-
-def fallbacks() -> int:
-    """The card's bilinear ``align_corners=True`` resizes so far that did
-    not take the upsample kernel (``ops/resize.py``): beside
-    ``launches()["upsample2x"]``, the kernel's hit share. The geometry
-    kernel's are ``unproject_slots.fallbacks``."""
-    return upsample2x.fallbacks
+from . import (  # noqa: F401  (each registers its ops)
+    fused_fusion,
+    fused_head,
+    fused_rcu,
+    global_attention,
+    segment_sum,
+    unproject_slots,
+    upsample,
+    window_attention,
+)
+from ._build import count_fallback, fallbacks, launches  # noqa: F401

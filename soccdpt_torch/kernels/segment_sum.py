@@ -31,17 +31,18 @@ dropped row (JAX's ``_accumulate_sort_bwd``); ``lin`` has none. On CUDA
 the gather is a kernel of its own (``segment_sum_backward``); the forward
 saves ``lin`` only.
 
-``segment_sum`` and ``segment_sum_backward`` launch their kernels for
-CUDA tensors and run ``segment_sum_plain`` / ``segment_sum_backward_plain``
-for CPU tensors; their ``launches`` attributes count kernel launches.
+``segment_sum`` and ``segment_sum_backward`` call the ops
+``soccdpt::segment_sum`` and ``soccdpt::segment_sum_backward``
+(``_build.op``), which launch the kernels for CUDA tensors and run
+``segment_sum_plain`` / ``segment_sum_backward_plain`` for CPU tensors;
+``kernels.ops.launches()`` counts each op's launches.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from . import _build
+from ._build import I64, INT, PTR
 
 
 def segment_sum_plain(lin: torch.Tensor, vals: torch.Tensor, num_slots: int) -> torch.Tensor:
@@ -83,15 +84,7 @@ def _launch(lin: torch.Tensor, vals: torch.Tensor, num_slots: int) -> torch.Tens
                          f"rows and {num_slots} slots")
     lin = _keys(lin, B * N, vals.device)
     out = torch.empty((num_slots, C), dtype=torch.float32, device=vals.device)
-    lib = _build.load("segment_sum")
-    fn = lib.soccdpt_segment_sum
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 3
-                   + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    rc = fn(lin.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, C, *v.stride(), num_slots,
-            torch.cuda.current_stream(vals.device).cuda_stream)
-    _build.check(lib, rc, "segment sum kernel")
-    segment_sum.launches += 1
+    _FORWARD(vals.device, lin, v, out, B, N, C, *v.stride(), num_slots)
     return out
 
 
@@ -103,27 +96,30 @@ def _launch_backward(lin: torch.Tensor, cot: torch.Tensor) -> torch.Tensor:
     lin = _keys(lin, lin.numel(), cot.device)
     S, C = cot.shape
     grad = torch.empty((lin.numel(), C), dtype=torch.float32, device=cot.device)
-    lib = _build.load("segment_sum")
-    fn = lib.soccdpt_segment_sum_backward
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(lin.data_ptr(), cot.data_ptr(), grad.data_ptr(), lin.numel(), C, S,
-            torch.cuda.current_stream(cot.device).cuda_stream)
-    _build.check(lib, rc, "segment sum backward kernel")
-    segment_sum_backward.launches += 1
+    _BACKWARD(cot.device, lin, cot, grad, lin.numel(), C, S)
     return grad
+
+
+_FORWARD = _build.Entry("segment_sum", "soccdpt_segment_sum",
+                        [PTR] * 3 + [INT] * 3 + [I64] * 3 + [INT], "segment sum kernel")
+_BACKWARD = _build.Entry("segment_sum", "soccdpt_segment_sum_backward",
+                         [PTR] * 3 + [I64, INT, INT], "segment sum backward kernel")
+_segment_sum_op = _build.op(
+    "segment_sum(Tensor lin, Tensor vals, int num_slots) -> Tensor", _launch, segment_sum_plain,
+    lambda lin, vals, num_slots: vals.new_empty(
+        (num_slots, vals.shape[-1]), dtype=torch.promote_types(vals.dtype, torch.float32)))
+_segment_sum_backward_op = _build.op(
+    "segment_sum_backward(Tensor lin, Tensor cot) -> Tensor", _launch_backward,
+    segment_sum_backward_plain, lambda lin, cot: cot.new_empty((lin.numel(), cot.shape[1])))
 
 
 def segment_sum_backward(lin: torch.Tensor, cot: torch.Tensor) -> torch.Tensor:
     """The gradient of ``vals`` from the (S, C) cotangent, ``(lin.numel(),
     C)``: the gather kernel for CUDA tensors, the plain version for CPU
     tensors."""
-    if cot.device.type == "cuda":
-        return _launch_backward(lin, cot)
-    if cot.device.type != "cpu":
+    if cot.device.type not in ("cuda", "cpu"):
         raise ValueError(f"segment sum runs on cuda or cpu, not {cot.device}")
-    return segment_sum_backward_plain(lin, cot)
+    return _segment_sum_backward_op(lin, cot)
 
 
 class _SegmentSum(torch.autograd.Function):
@@ -131,9 +127,7 @@ class _SegmentSum(torch.autograd.Function):
     def forward(ctx, lin, vals, num_slots):
         ctx.save_for_backward(lin)
         ctx.vals_shape = vals.shape
-        if vals.device.type == "cuda":
-            return _launch(lin, vals, num_slots)
-        return segment_sum_plain(lin, vals, num_slots)
+        return _segment_sum_op(lin, vals, num_slots)
 
     @staticmethod
     def backward(ctx, cot):
@@ -153,7 +147,3 @@ def segment_sum(lin: torch.Tensor, vals: torch.Tensor, num_slots: int) -> torch.
     else:
         raise ValueError(f"segment sum runs on cuda or cpu, not {vals.device}")
     return _SegmentSum.apply(lin, vals, num_slots)
-
-
-segment_sum.launches = 0
-segment_sum_backward.launches = 0

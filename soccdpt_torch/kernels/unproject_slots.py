@@ -18,16 +18,14 @@ may sum a row in another order than the kernel.
 Bound on the H100: bytes, 20 a pixel (``tail_bytes``): 249 MB a batch-6
 request at 1080x1920, 74 us at 3.35 TB/s.
 
-The op is ``soccdpt::unproject_slots`` (``torch.library``, registered as
-the upsample's): its CUDA implementation launches the kernel on the current
-stream and allocates only its outputs, its CPU implementation is
-``unproject_slots_plain``, and a fake implementation gives the outputs'
-shapes, so CUDA graphs capture it and ``torch.export`` records it as one
-node. ``ops/geometry.py::get_semantic_occupancy`` decides which calls take
-it. ``unproject_slots.launches`` counts the kernel's launches (Python calls:
-a graph counts at its capture); ``unproject_slots.fallbacks`` counts the
-card's geometry tails that ``get_semantic_occupancy`` left to the plain
-path (autograd, another dtype or layout).
+The op is ``soccdpt::unproject_slots`` (``_build.op``): its CUDA
+implementation launches the kernel on the current stream and allocates
+only its outputs, its CPU implementation is ``unproject_slots_plain``.
+``ops/geometry.py::get_semantic_occupancy`` decides which calls take it.
+``kernels.ops.launches()["unproject_slots"]`` counts the op's launches;
+``fallbacks()["unproject_slots"]`` the card's geometry tails that
+``get_semantic_occupancy`` left to the plain path (autograd, another dtype
+or layout).
 """
 from __future__ import annotations
 
@@ -40,6 +38,7 @@ import torch
 
 from ..core.config import CameraConfig, OccupancyConfig
 from . import _build
+from ._build import F32, INT, PTR
 
 BYTES_PER_PIXEL = {True: 20, False: 16}  # inverse depth in, point out, [slot out]
 
@@ -99,28 +98,15 @@ def launch(inv: torch.Tensor, intrinsics, pc_scale, pc_shift, angle, grid_size, 
     slot = torch.empty((B * H * W,) if slots else (0,), dtype=torch.int32, device=inv.device)
     params, grid = _params(tuple(intrinsics), tuple(pc_scale), tuple(pc_shift), tuple(angle),
                            tuple(grid_size), tuple(voxel_scale))
-    lib = _build.load("unproject_slots")
-    fn = lib.soccdpt_unproject_slots
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    rc = fn(inv.data_ptr(), points.data_ptr(), slot.data_ptr() if slots else None, B, H, W,
-            params, grid, torch.cuda.current_stream(inv.device).cuda_stream)
-    _build.check(lib, rc, "geometry kernel")
-    unproject_slots.launches += 1
+    _UNPROJECT(inv.device, inv, points, slot if slots else None, B, H, W, params, grid)
     return points, slot
 
 
-# The custom op, registered through ``torch.library.Library`` as the
-# upsample's is (kernels/upsample.py)
-_LIB = torch.library.Library("soccdpt", "FRAGMENT")
-_LIB.define("unproject_slots(Tensor inv, float[] intrinsics, float[] pc_scale, "
-            "float[] pc_shift, float[] angle, int[] grid_size, float[] voxel_scale, "
-            "bool slots) -> (Tensor, Tensor)")
-_LIB.impl("unproject_slots", launch, "CUDA")
-_LIB.impl("unproject_slots", unproject_slots_plain, "CPU")
+_UNPROJECT = _build.Entry("unproject_slots", "soccdpt_unproject_slots",
+                          [PTR] * 3 + [INT] * 3 + [ctypes.POINTER(F32), ctypes.POINTER(INT)],
+                          "geometry kernel")
 
 
-@torch.library.register_fake("soccdpt::unproject_slots", lib=_LIB)
 def _unproject_slots_fake(inv, intrinsics, pc_scale, pc_shift, angle, grid_size, voxel_scale,
                           slots):
     B, H, W = inv.shape
@@ -128,7 +114,10 @@ def _unproject_slots_fake(inv, intrinsics, pc_scale, pc_shift, angle, grid_size,
             inv.new_empty((B * H * W,) if slots else (0,), dtype=torch.int32))
 
 
-_unproject_slots_op = torch.ops.soccdpt.unproject_slots.default
+_unproject_slots_op = _build.op(
+    "unproject_slots(Tensor inv, float[] intrinsics, float[] pc_scale, float[] pc_shift, "
+    "float[] angle, int[] grid_size, float[] voxel_scale, bool slots) -> (Tensor, Tensor)",
+    launch, unproject_slots_plain, _unproject_slots_fake)
 
 
 def unproject_slots(inv: torch.Tensor, camera: CameraConfig, occ: OccupancyConfig,
@@ -142,7 +131,3 @@ def unproject_slots(inv: torch.Tensor, camera: CameraConfig, occ: OccupancyConfi
         list(occ.pc_shift), list(occ.correction_angle), list(occ.grid_size), list(occ.scale),
         slots)
     return points, slot if slots else None
-
-
-unproject_slots.launches = 0
-unproject_slots.fallbacks = 0

@@ -19,18 +19,17 @@ its band waits on each new source row, so short bands, many CTAs, keep
 more loads in flight, while each band re-reads its first source rows; 4
 rows were fastest for 16-byte chunks from 16x16 maps up, 16 for the
 one-channel path, whose thread stores 2 bytes a row. A grid of fewer CTAs
-than the card has SMs (read from the device) halves the band until it
-fills them or is one row.
+than the card has SMs (``_build.SMS``) halves the band until it fills them
+or is one row.
 
-The op is ``soccdpt::upsample2x`` (``torch.library``, registered as K1's
-and K6's): its CUDA implementation launches the kernel on the current
-stream and allocates only its output, its CPU implementation is
-``upsample2x_plain``, and a fake implementation gives the output's shape,
-so CUDA graphs capture it and ``torch.export`` records it as one node.
-``ops/resize.py`` decides which calls take it. ``upsample2x.launches``
-counts the kernel's launches (the decoder's, K4's and K5's);
-``upsample2x.fallbacks`` counts the card's bilinear ``align_corners=True``
-resizes that ``ops/resize.py`` left to ``F.interpolate``.
+The op is ``soccdpt::upsample2x`` (``_build.op``): its CUDA implementation
+launches the kernel on the current stream and allocates only its output,
+its CPU implementation is ``upsample2x_plain``. ``ops/resize.py`` decides
+which calls take it. ``kernels.ops.launches()["upsample2x"]`` counts the
+op's launches from the decoder and the heads; ``fallbacks()["upsample2x"]``
+the card's bilinear ``align_corners=True`` resizes that ``ops/resize.py``
+left to ``F.interpolate``. K4 and K5 launch the kernel through
+``launch``, inside their own ops.
 """
 from __future__ import annotations
 
@@ -38,11 +37,10 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._conv import call
+from ._build import INT, PTR
 
 THREADS = 256  # a CTA's threads: must match UP_THREADS in csrc/upsample.cuh
 BAND_ROWS = {True: 4, False: 16}  # output rows a CTA walks, by whether chunks are 16 bytes
-_SMS = {}  # streaming multiprocessors by device index
 
 
 def upsample_bytes(B: int, H: int, W: int, C: int) -> int:
@@ -50,22 +48,15 @@ def upsample_bytes(B: int, H: int, W: int, C: int) -> int:
     return 2 * B * H * W * C * 5
 
 
-def plan_rows(B: int, H: int, W: int, C: int, sms: int, wide: bool = True) -> int:
+def plan_rows(B: int, H: int, W: int, C: int, wide: bool = True) -> int:
     """Output rows a CTA walks: ``BAND_ROWS[wide]``, halved while the grid
-    has fewer CTAs than the card's ``sms`` SMs. ``wide``: 16-byte chunks of
-    8 channels (C % 8 == 0, aligned), else one channel a thread."""
+    has fewer CTAs than the card's ``_build.SMS`` SMs. ``wide``: 16-byte
+    chunks of 8 channels (C % 8 == 0, aligned), else one channel a thread."""
     col_ctas = -(-2 * W * (C // 8 if wide else C) // THREADS)
     rows = BAND_ROWS[wide]
-    while rows > 1 and col_ctas * -(-2 * H // rows) * B < sms:
+    while rows > 1 and col_ctas * -(-2 * H // rows) * B < _build.SMS:
         rows //= 2
     return rows
-
-
-def _sms(device: torch.device) -> int:
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _SMS:
-        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _SMS[index]
 
 
 def upsample2x_plain(x: torch.Tensor) -> torch.Tensor:
@@ -84,30 +75,22 @@ def launch(x: torch.Tensor) -> torch.Tensor:
                          f"{x.dtype} {tuple(x.shape)} at strides {x.stride()}")
     B, H, W, C = x.shape
     out = torch.empty((B, 2 * H, 2 * W, C), dtype=x.dtype, device=x.device)
-    rows = plan_rows(B, H, W, C, _sms(x.device), C % 8 == 0 and x.data_ptr() % 16 == 0)
-    lib = _build.load("upsample")
-    rc = call(lib, "soccdpt_upsample2x_bf16", [x, out], [B, H, W, C, rows],
-              torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "upsample kernel")
-    upsample2x.launches += 1
+    _UPSAMPLE(x.device, x, out, B, H, W, C,
+              plan_rows(B, H, W, C, C % 8 == 0 and x.data_ptr() % 16 == 0))
     return out
 
 
-# The custom op, registered through ``torch.library.Library`` as K1's is
-# (kernels/window_attention.py): cheaper to call than ``custom_op``
-_LIB = torch.library.Library("soccdpt", "FRAGMENT")
-_LIB.define("upsample2x(Tensor x) -> Tensor")
-_LIB.impl("upsample2x", launch, "CUDA")
-_LIB.impl("upsample2x", upsample2x_plain, "CPU")
+_UPSAMPLE = _build.Entry("upsample", "soccdpt_upsample2x_bf16", [PTR] * 2 + [INT] * 5,
+                         "upsample kernel")
 
 
-@torch.library.register_fake("soccdpt::upsample2x", lib=_LIB)
 def _upsample2x_fake(x):
     B, H, W, C = x.shape
     return x.new_empty((B, 2 * H, 2 * W, C))
 
 
-_upsample2x_op = torch.ops.soccdpt.upsample2x.default
+_upsample2x_op = _build.op("upsample2x(Tensor x) -> Tensor", launch, upsample2x_plain,
+                           _upsample2x_fake)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -115,7 +98,3 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     the op: the kernel on the card, ``upsample2x_plain`` on the CPU. No
     gradient: ``ops/resize.py`` sends what autograd records elsewhere."""
     return _upsample2x_op(x)
-
-
-upsample2x.launches = 0
-upsample2x.fallbacks = 0

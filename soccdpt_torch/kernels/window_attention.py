@@ -33,14 +33,12 @@ mask) for about 1.9 GFLOP, so the bytes dominate (about 13 us at
 3.35 TB/s against 2 us of bf16 tensor-core time); a single launch moves
 0.2-2.4 us of bytes, so its floor is the launch itself.
 
-The forward is the custom op ``soccdpt::window_attention``
-(``torch.library``): its CUDA implementation launches the kernel, its CPU
-implementation is ``window_attention_plain``, and a fake implementation
-gives the output's shape and dtype, so ``torch.export`` records the call
-as one node and an exported program launches the kernel when it runs on
-the card. A device with no implementation raises. ``window_attention``
-calls the op; ``window_attention.launches`` counts kernel launches
-(forward only: the backward launches none).
+The forward is the op ``soccdpt::window_attention`` (``_build.op``): its
+CUDA implementation launches the kernel, its CPU implementation is
+``window_attention_plain``, so an exported program launches the kernel
+when it runs on the card. ``window_attention`` calls the op;
+``kernels.ops.launches()["window_attention"]`` counts its launches (forward
+only: the backward launches none).
 
 Gradient. The JAX package's backward of this kernel is no Pallas kernel:
 ``_pwa_bwd`` re-derives the attention matrix through ``xla_reference``
@@ -61,13 +59,13 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
-from .global_attention import _as_tma, tma_geometry
+from ._build import I64, INT, PTR
+from .global_attention import _as_tma, _geometry
 
 SUPPORTED_D = (16, 32, 64)
 MAX_SMEM_BYTES = 232448  # per block on sm_90
 SM_SMEM_BYTES = 233472  # per SM (228 KB), shared by the CTAs resident on it
 WARPS = 8  # the f32 route's warps a block: must match csrc/window_attention.cu
-SMS = 132  # streaming multiprocessors of an H100 SXM
 
 # The bf16 route (csrc/window_attention.cu, namespace wgattn), restated for
 # the planner: query rows a CTA (one warpgroup), keys a tile, the ring's
@@ -136,7 +134,7 @@ def pick_q_tile(Bw: int, H: int, N: int) -> int:
     """Query rows per block: the largest of 32, 16, 8 that still gives two
     blocks per SM, so stages with few window-heads fill the card."""
     for tile in (32, 16):
-        if Bw * H * -(-N // tile) >= 2 * SMS:
+        if Bw * H * -(-N // tile) >= 2 * _build.SMS:
             return tile
     return 8
 
@@ -197,6 +195,13 @@ def _kind(t: Optional[torch.Tensor]) -> int:
     return 1 if t.dtype == torch.float32 else 2
 
 
+_F32 = _build.Entry("window_attention", "soccdpt_window_attention_f32", [PTR] * 7 + [INT] * 6,
+                    "window attention kernel")
+_BF16 = _build.Entry("window_attention", "soccdpt_window_attention_bf16",
+                     [PTR] * 3 + [ctypes.POINTER(I64)] + [PTR, INT] * 3 + [PTR] + [INT] * 6,
+                     "window attention kernel")
+
+
 def _launch_bf16(q, k, v, scale, bias, mask):
     """One launch of the tensor-core route: q, k, v read in place (a view
     TMA cannot read is copied once), tau, B and M passed as they lie."""
@@ -207,19 +212,8 @@ def _launch_bf16(q, k, v, scale, bias, mask):
     bias = _on_card(bias, q)
     mask = None if mask is None else _on_card(mask, q)
     out = torch.empty((Bw, H, N, d), dtype=q.dtype, device=q.device)
-    flat = [x for t in (q, k, v) for x in tma_geometry(t)]
-    lib = _build.load("window_attention")
-    fn = lib.soccdpt_window_attention_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), (ctypes.c_longlong * len(flat))(*flat),
-            tau.data_ptr(), _kind(tau), bias.data_ptr(), _kind(bias),
-            None if mask is None else mask.data_ptr(), _kind(mask), out.data_ptr(),
-            Bw, H, N, d, 1 if mask is None else mask.shape[0], plan.stages,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, rc, "window attention kernel")
+    _BF16(q.device, q, k, v, _geometry(q, k, v), tau, _kind(tau), bias, _kind(bias), mask,
+          _kind(mask), out, Bw, H, N, d, 1 if mask is None else mask.shape[0], plan.stages)
     return out
 
 
@@ -235,50 +229,20 @@ def _launch_f32(q, k, v, scale, bias, mask):
     scale = scale.to(q.device, torch.float32).reshape(H).contiguous()
     bias = bias.to(q.device, torch.float32).contiguous()
     out = torch.empty_like(q)
-    lib = _build.load("window_attention")
-    fn = lib.soccdpt_window_attention_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        Bw, H, N, d, nW, pick_q_tile(Bw, H, N),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(lib, rc, "window attention kernel")
+    _F32(q.device, q, k, v, scale, bias, mask, out, Bw, H, N, d, nW, pick_q_tile(Bw, H, N))
     return out
 
 
 def _launch(q, k, v, scale, bias, mask):
     _check(q, k, v, scale, bias, mask)
     launch = _launch_bf16 if q.dtype == torch.bfloat16 else _launch_f32
-    out = launch(q, k, v, scale, bias, mask)
-    window_attention.launches += 1
-    return out
+    return launch(q, k, v, scale, bias, mask)
 
 
-# The custom op, registered through ``torch.library.Library``: cheaper to
-# call than through ``torch.library.custom_op``, whose Python wrappers run
-# on every call (PERF.md §6)
-_LIB = torch.library.Library("soccdpt", "FRAGMENT")
-_LIB.define(
+_window_attention_op = _build.op(
     "window_attention(Tensor q, Tensor k, Tensor v, Tensor scale, Tensor bias, Tensor? mask)"
-    " -> Tensor"
-)
-_LIB.impl("window_attention", _launch, "CUDA")
-_LIB.impl("window_attention", window_attention_plain, "CPU")
-
-
-@torch.library.register_fake("soccdpt::window_attention", lib=_LIB)
-def _window_attention_fake(q, k, v, scale, bias, mask):
-    return q.new_empty(q.shape)
-
-
-_window_attention_op = torch.ops.soccdpt.window_attention.default
-
-
-def _forward(q, k, v, scale, bias, mask):
-    return _window_attention_op(q, k, v, scale, bias, mask)
+    " -> Tensor", _launch, window_attention_plain,
+    lambda q, k, v, scale, bias, mask: q.new_empty(q.shape))
 
 
 class _WindowAttention(torch.autograd.Function):
@@ -288,7 +252,7 @@ class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, bias, mask):
         ctx.save_for_backward(q, k, v, scale, bias, mask)
-        return _forward(q, k, v, scale, bias, mask)
+        return _window_attention_op(q, k, v, scale, bias, mask)
 
     @staticmethod
     @once_differentiable
@@ -321,7 +285,4 @@ def window_attention(
         raise ValueError(f"window attention runs on cuda or cpu, not {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, scale, bias)):
         return _WindowAttention.apply(q, k, v, scale, bias, mask)
-    return _forward(q, k, v, scale, bias, mask)
-
-
-window_attention.launches = 0
+    return _window_attention_op(q, k, v, scale, bias, mask)

@@ -30,7 +30,7 @@ carry the flax scope names (``stem_conv``, ``stage1_block0.gn2``,
 ``patch_embed_proj``, ``block7.qkv``, ``readout3.project``, ``down2x``),
 so ``weights.load_jax_variables`` maps one tree onto the other by name.
 
-Counters (``counts()``), read and reset like ``kernels.ops.launches()``:
+Counters (``counts()``), read like ``kernels.ops.launches()``:
 ``group_norm_nhwc.calls`` counts GroupNorms run (52 a forward of
 ``vitb_rn50_384``), ``standardized_weight.misses`` the kernels
 standardized rather than taken from the cache (none after the first

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core.config import CameraConfig, OccupancyConfig
+from ..kernels.ops import count_fallback
 from ..kernels.segment_sum import segment_sum
 from ..kernels.unproject_slots import unproject_slots
 from .resize import resize_nchw
@@ -213,7 +214,7 @@ def get_semantic_occupancy(
         points, slot = unproject_slots(inv_depth_up, cam, occ, compute_occ)
     else:
         if inv_depth_up.is_cuda:
-            unproject_slots.fallbacks += 1
+            count_fallback("unproject_slots")
         points = camera_frame_points(inv_depth_up, cam)
         slot = (slot_keys(occupancy_frame(points.reshape(B, -1, 3), occ), occ)
                 if compute_occ else None)

@@ -25,7 +25,7 @@ kernel has no backward), any other size or mode, and
 ``align_corners=False``. At the served shapes the kernel runs about ten
 times faster than aten's (PERF.md, section 6). A bilinear
 ``align_corners=True`` call on the card that falls back is counted in
-``upsample2x.fallbacks``.
+``kernels.ops.fallbacks()["upsample2x"]``.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.ops import count_fallback
 from ..kernels.upsample import upsample2x
 
 
@@ -72,7 +73,7 @@ def resize_hw(
             x = x.clone(memory_format=torch.contiguous_format)
         return upsample2x(x)
     if x.is_cuda and method == "bilinear" and align_corners:
-        upsample2x.fallbacks += 1
+        count_fallback("upsample2x")
     out = _interpolate(x.permute(0, 3, 1, 2), tuple(size), method, align_corners)
     return out.permute(0, 2, 3, 1)
 

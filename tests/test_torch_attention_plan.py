@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from soccdpt_torch.kernels import _build
+from soccdpt_torch.kernels import _build, ops
 from soccdpt_torch.kernels import global_attention as ga
 
 # (B, H, T, D): beitl16_512 at batch 1 and 2, the 384-px models at batch 2,
@@ -75,7 +75,7 @@ def test_the_beit_forward_fills_the_card():
     dk/dv kernel 9 tiles of 128 keys a head."""
     plan = ga.plan_attention(1, 16, 1025, 64)
     assert plan.fwd_grid == (1, 17, 16) and plan.dkv_grid == (1, 9, 16)
-    assert np.prod(plan.fwd_grid) >= ga.SMS and np.prod(plan.dkv_grid) >= ga.SMS
+    assert np.prod(plan.fwd_grid) >= _build.SMS and np.prod(plan.dkv_grid) >= _build.SMS
 
 
 def test_the_planner_refuses_what_the_kernels_do_not_take():
@@ -209,6 +209,12 @@ def _geometry_arg(arg, n):
     return list(arg)
 
 
+def _on_the_card(op, *args):
+    """``op``'s CUDA implementation on CPU tensors, counted as a call on the
+    card is: the launcher reaches the fake library."""
+    return op.redispatch(torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA), *args)
+
+
 @pytest.fixture
 def fake(monkeypatch):
     lib = _FakeLib()
@@ -224,14 +230,14 @@ def test_bf16_calls_take_the_tensor_core_entries_with_their_views(fake, bias_dty
     qkv = torch.zeros(B, T, 3, H, D, dtype=torch.bfloat16)
     q, k, v = qkv.permute(2, 0, 3, 1, 4)
     bias = None if bias_dtype is None else torch.zeros(H, T, T, dtype=bias_dtype)
-    before = ga.global_attention.launches
-    out, lse, (qr, kr, vr, br) = ga._launch(q, k, v, bias, 0.25, want_lse=True)
-    assert ga.global_attention.launches == before + 1
+    before = ops.launches()
+    out, lse = _on_the_card(torch.ops.soccdpt.global_attention_with_lse.default, q, k, v, bias,
+                            0.25)
+    launched = ops.launches()
+    assert launched["global_attention_with_lse"] == before["global_attention_with_lse"] + 1
     (name, args), = fake.calls
     assert name == "soccdpt_global_attention_bf16"
     # q, k, v are read in place, through maps of the views' own strides
-    assert (qr.data_ptr(), kr.data_ptr(), vr.data_ptr()) == (q.data_ptr(), k.data_ptr(),
-                                                             v.data_ptr())
     assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
     assert _geometry_arg(args[3], 3) == ga.tma_geometry(q) + ga.tma_geometry(k) + ga.tma_geometry(v)
     assert ga.tma_geometry(q)[4:] == [3 * H * D * 2, D * 2, T * 3 * H * D * 2]
@@ -242,16 +248,16 @@ def test_bf16_calls_take_the_tensor_core_entries_with_their_views(fake, bias_dty
     assert len(args) == 14
 
     g = torch.zeros(B, H, T, D, dtype=torch.bfloat16)
-    before = ga.global_attention_backward.launches
-    dq, dk, dv, dbias = ga._launch_backward(qr, kr, vr, br, out, lse, g, 0.25, bias is not None)
-    assert ga.global_attention_backward.launches == before + 1
+    dq, dk, dv, dbias = _on_the_card(torch.ops.soccdpt.global_attention_backward.default, q, k,
+                                     v, bias, out, lse, g, 0.25, bias is not None)
+    assert ops.launches()["global_attention_backward"] == launched["global_attention_backward"] + 1
     name, args = fake.calls[1]
     assert name == "soccdpt_global_attention_bwd_bf16"
     assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr())
     assert _geometry_arg(args[4], 4) == sum(map(ga.tma_geometry, (q, k, v, g)), [])
     assert args[5] == out.data_ptr()
     assert args[9:12] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    assert (args[12] is None) == (bias is None) and (dbias is None) == (bias is None)
+    assert (args[12] is None) == (bias is None) and (dbias.numel() == 0) == (bias is None)
     assert args[-2] == ga.plan_attention(B, H, T, D).img == 2
     assert len(fake.calls) == 2
 

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from soccdpt_torch.kernels import _conv
+from soccdpt_torch.kernels import _build, _conv, ops
 from soccdpt_torch.kernels.fused_fusion import fused_rcu_tail
 from soccdpt_torch.kernels.fused_rcu import fused_rcu
 
@@ -84,9 +84,9 @@ def test_decoder_maps_at_batch_1_fill_the_card_where_the_plan_says_so(size):
     plan = _conv.plan_conv(1, size, size, 256, 9)
     at_floor = plan.ksteps // plan.splits == _conv.MIN_SPLIT_KSTEPS
     if plan.splits == 1:
-        assert 2 * plan.ctas >= _conv.SMS
+        assert 2 * plan.ctas >= _build.SMS
     else:
-        assert plan.ctas >= _conv.SMS or at_floor
+        assert plan.ctas >= _build.SMS or at_floor
     expected = {8: ((8, 8, 64), 4, 16), 16: ((8, 8, 64), 4, 64), 32: ((8, 8, 64), 3, 192),
                 64: ((8, 8, 128), 1, 128), 128: ((16, 8, 128), 1, 256)}
     assert (plan.box, plan.splits, plan.ctas) == expected[size]
@@ -163,16 +163,13 @@ class _FakePrepare:
 
     seen = None
 
+    argtypes = None
+
     def __call__(self, n, w, strides, taps, is_bf16, out, counters, n_counters, C, stream):
-        import ctypes
-
-        def read(arg, kind, count):
-            return list((kind * count).from_address(arg.value))
-
-        st = read(strides, ctypes.c_longlong, 4 * n)
-        self.seen = {"n": n, "w": read(w, ctypes.c_void_p, n), "out": read(out, ctypes.c_void_p, n),
-                     "taps": read(taps, ctypes.c_int, n),
-                     "is_bf16": read(is_bf16, ctypes.c_int, n),
+        assert all(len(a) == n for a in (w, taps, is_bf16, out)) and len(strides) == 4 * n
+        st = list(strides)
+        self.seen = {"n": n, "w": list(w), "out": list(out), "taps": list(taps),
+                     "is_bf16": list(is_bf16),
                      "strides": [tuple(st[4 * i:4 * i + 4]) for i in range(n)],
                      "counters": counters, "n_counters": n_counters, "C": C}
         return 0
@@ -191,9 +188,10 @@ def test_prepare_passes_every_weight_with_its_strides_taps_and_dtype(monkeypatch
     scratch = _conv.Scratch([_conv.plan_conv(1, 8, 8, 256, 9)], "cpu")
     fake = _FakePrepare()
     lib = type("Lib", (), {"soccdpt_prepare_bf16": fake})()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("Stream", (), {"cuda_stream": 0})())
-    outs = _conv.prepare_bf16(lib, like, [w1, w2, wo], scratch)
+    outs = _conv.prepare_bf16("fused_fusion", like, [w1, w2, wo], scratch)
     seen = fake.seen
     assert seen["w"] == [w1.data_ptr(), w2.data_ptr(), wo.data_ptr()]
     assert seen["out"] == [o.data_ptr() for o in outs]
@@ -313,12 +311,7 @@ class _FakeHeadLib:
         return Entry()
 
     def _prepare_entry(self):
-        import ctypes
-
         lib = self
-
-        def read(arg, kind, count):
-            return list((kind * count).from_address(arg.value))
 
         class Entry:
             argtypes = restype = None
@@ -326,27 +319,21 @@ class _FakeHeadLib:
             def __call__(self, w2, strides, is_bf16, w_out, vec, vec_strides, vec_n, vec_bf16,
                          vec_out, Ci, Cm, Cw, stream):
                 lib.calls.append(("soccdpt_prepare_head_bf16", ()))
-                lib.prepared = {"w2": w2, "strides": read(strides, ctypes.c_longlong, 4),
-                                "is_bf16": is_bf16, "w_out": w_out,
-                                "vec": read(vec, ctypes.c_void_p, 3),
-                                "vec_strides": read(vec_strides, ctypes.c_longlong, 3),
-                                "vec_n": read(vec_n, ctypes.c_int, 3),
-                                "vec_bf16": read(vec_bf16, ctypes.c_int, 3),
-                                "vec_out": vec_out, "dims": (Ci, Cm, Cw)}
+                lib.prepared = {"w2": w2, "strides": list(strides), "is_bf16": is_bf16,
+                                "w_out": w_out, "vec": list(vec),
+                                "vec_strides": list(vec_strides), "vec_n": list(vec_n),
+                                "vec_bf16": list(vec_bf16), "vec_out": vec_out,
+                                "dims": (Ci, Cm, Cw)}
                 return 0
         return Entry()
 
 
 @pytest.fixture
 def fake_head(monkeypatch):
-    from soccdpt_torch.kernels import _build, upsample
-
     lib = _FakeHeadLib()
     monkeypatch.setattr(_build, "load", lambda name: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("Stream", (), {"cuda_stream": 0})())
-    # the upsample's band plan reads the card's SM count: an H100 SXM's
-    monkeypatch.setattr(upsample, "_sms", lambda device: 132)
     return lib
 
 
@@ -355,8 +342,6 @@ def test_a_bf16_head_call_is_prepare_upsample_conv(fake_head, Cm):
     """Three launches: one preparation of all four weights as they lie (a
     port module's OIHW conv weight seen as HWIO, w3 in its (1, 1, Cm, 1)
     form, a scalar b3), the upsample of x into u, the head conv of u."""
-    from soccdpt_torch.kernels import fused_head as fh
-
     B, H, W, Ci = 2, 5, 7, 16
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal((B, H, W, Ci)).astype(np.float32)).bfloat16()
@@ -365,9 +350,10 @@ def test_a_bf16_head_call_is_prepare_upsample_conv(fake_head, Cm):
     b2 = torch.zeros(Cm)
     w3 = torch.zeros(1, Cm, 1, 1).permute(2, 3, 1, 0)
     b3 = torch.zeros(())
-    before = fh.fused_head_tail.launches
-    out = fh._launch(x, w2, b2, w3, b3)
-    assert fh.fused_head_tail.launches == before + 1
+    before = ops.launches()["fused_head_tail"]
+    out = torch.ops.soccdpt.fused_head_tail.default.redispatch(
+        torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA), x, w2, b2, w3, b3)  # on the CPU
+    assert ops.launches()["fused_head_tail"] == before + 1
     assert [name for name, _ in fake_head.calls] == [
         "soccdpt_prepare_head_bf16", "soccdpt_upsample2x_bf16", "soccdpt_head_conv_bf16"]
     seen = fake_head.prepared

@@ -31,6 +31,7 @@ from soccdpt_tpu.ops.fused_rcu import fused_rcu as jax_fused_rcu
 from soccdpt_tpu.ops.fused_rcu import xla_rcu
 
 from soccdpt_torch.kernels import _conv
+from soccdpt_torch.kernels import ops as kernel_ops
 from soccdpt_torch.kernels.fused_fusion import fused_rcu_tail
 from soccdpt_torch.kernels.fused_head import fused_head_tail
 from soccdpt_torch.kernels.fused_rcu import fused_rcu
@@ -71,10 +72,10 @@ def _head_inputs(B, H, W, Ci, Cm, seed=0):
 
 def _port(fn, arrays):
     """The port's wrapper on CPU tensors: the plain version, no launch."""
-    before = fn.launches
+    before = kernel_ops.launches()[fn.__name__]
     with torch.no_grad():
         out = fn(*[torch.from_numpy(np.array(a)) for a in arrays])
-    assert fn.launches == before
+    assert kernel_ops.launches()[fn.__name__] == before
     return to_np(out)
 
 
@@ -187,9 +188,9 @@ def test_fused_head_tail_gradients_match_jax():
 
     want = jax.grad(loss_pallas, argnums=(0, 1, 2, 3, 4))(*[jnp.asarray(a) for a in args])
     leaves = [torch.from_numpy(a).requires_grad_() for a in args]
-    before = fused_head_tail.launches
+    before = kernel_ops.launches()["fused_head_tail"]
     fused_head_tail(*leaves).sum().backward()
-    assert fused_head_tail.launches == before
+    assert kernel_ops.launches()["fused_head_tail"] == before
     for name, t, w in zip(("x", "w2", "b2", "w3", "b3"), leaves, want):
         assert t.grad.shape == t.shape, name
         np.testing.assert_allclose(to_np(t.grad), np.asarray(w), atol=2e-5, rtol=2e-5,

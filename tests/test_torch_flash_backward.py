@@ -26,6 +26,7 @@ import torch
 from soccdpt_tpu.ops import window_attention as jax_wa
 from soccdpt_tpu.ops.global_attention import _flash_backward, xla_reference
 
+from soccdpt_torch.kernels import ops as kernel_ops
 from soccdpt_torch.kernels.global_attention import (
     global_attention,
     global_attention_backward,
@@ -104,10 +105,11 @@ def test_function_backward_matches_jax_vjp(B, H, T, d, bias, dtype):
     jargs, jb, jg, targs, tb, tg, scale = _both(B, H, T, d, bias, dtype)
     want = _jax_grads("xla_vjp", jargs, jb, jg, scale)
     leaves = [t.requires_grad_() for t in targs] + ([tb.requires_grad_()] if bias else [])
-    launches = global_attention.launches, global_attention_backward.launches
+    kernels = ("global_attention", "global_attention_backward")
+    launches = [kernel_ops.launches()[k] for k in kernels]
     out = global_attention(*targs, tb, scale)
     out.backward(tg)
-    assert launches == (global_attention.launches, global_attention_backward.launches)
+    assert launches == [kernel_ops.launches()[k] for k in kernels]
     got = [t.grad for t in leaves] + ([] if bias else [None])
     _assert_grads(got, want, dtype)
 
@@ -175,11 +177,11 @@ def test_window_attention_function_matches_jax_vjp(nW, dtype):
     targs = [torch.from_numpy(a).to(tdt) for a in args[:3]] + [torch.from_numpy(a) for a in args[3:]]
     targs = [t.requires_grad_() for t in targs]
     tmask = None if mask is None else torch.from_numpy(mask)
-    launches = window_attention.launches
+    launches = kernel_ops.launches()["window_attention"]
     out = window_attention(*targs, tmask)
     assert type(out.grad_fn).__name__ == "_WindowAttentionBackward"
     out.backward(torch.from_numpy(g).to(tdt))
-    assert window_attention.launches == launches  # CPU tensors: no kernel
+    assert kernel_ops.launches()["window_attention"] == launches  # CPU tensors: no kernel
     _assert_grads([t.grad for t in targs], want, dtype)
 
 

@@ -57,6 +57,7 @@ import pytest
 import torch
 
 from soccdpt_torch.kernels import _conv
+from soccdpt_torch.kernels import ops as kernel_ops
 from soccdpt_torch.kernels.global_attention import (
     global_attention,
     global_attention_backward,
@@ -70,6 +71,7 @@ from soccdpt_torch.kernels.segment_sum import (
     segment_sum,
     segment_sum_backward,
     segment_sum_backward_plain,
+    segment_sum_plain,
 )
 from soccdpt_torch.kernels.window_attention import window_attention, window_attention_plain
 
@@ -115,10 +117,10 @@ K1_SHAPES = [
 @pytest.mark.parametrize("Bw,H,N,d,nW", K1_SHAPES)
 def test_window_attention_kernel_matches_plain(card, dtype, Bw, H, N, d, nW):
     q, k, v, scale, bias, mask = _attn_inputs(Bw, H, N, d, nW, dtype, card)
-    before = window_attention.launches
+    before = kernel_ops.launches()["window_attention"]
     got = window_attention(q, k, v, scale, bias, mask)
     torch.cuda.synchronize()
-    assert window_attention.launches == before + 1
+    assert kernel_ops.launches()["window_attention"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = window_attention_plain(q, k, v, scale, bias, mask)
     atol = 2e-5 if dtype == torch.float32 else 5e-2
@@ -228,10 +230,10 @@ SEGMENT_CASES = ["random", "one_cell", "dropped", "empty", "channel_major", "str
 @pytest.mark.parametrize("case", SEGMENT_CASES)
 def test_segment_sum_kernel_matches_oracle(card, case):
     lin, vals, host, S = _segment_problem(case, card)
-    before = segment_sum.launches
+    before = kernel_ops.launches()["segment_sum"]
     got = segment_sum(lin, vals, S)
     torch.cuda.synchronize()
-    assert segment_sum.launches == before + 1
+    assert kernel_ops.launches()["segment_sum"] == before + 1
     rtol = 1e-4 if case == "one_cell" else 1e-5
     np.testing.assert_allclose(got.cpu().numpy(), _oracle(lin.cpu().numpy(), host, S),
                                rtol=rtol, atol=1e-5)
@@ -274,10 +276,10 @@ def test_global_attention_kernel_matches_plain(card, dtype, bias_dtype, B, H, T,
     scale = d**-0.5
     want = global_attention_plain(q, k, v, bias, scale).float().cpu().numpy()
     tol = 2e-5 if dtype == torch.float32 else 2e-2
-    before = global_attention.launches
+    before = kernel_ops.launches()["global_attention"]
     got = global_attention(q, k, v, bias, scale)
     torch.cuda.synchronize()
-    assert global_attention.launches == before + 1
+    assert kernel_ops.launches()["global_attention"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     np.testing.assert_allclose(got.float().cpu().numpy(), want, atol=tol, rtol=tol)
 
@@ -405,10 +407,10 @@ def test_global_attention_backward_kernel_matches_plain(card, dtype, bias_dtype,
     scale = d**-0.5
     want = global_attention_backward_plain(q, k, v, bias, scale, g)
     tol = K7_F32_TOL if dtype == torch.float32 else K7_BF16_TOL
-    before = global_attention_backward.launches
+    before = kernel_ops.launches()["global_attention_backward"]
     got = global_attention_backward(q, k, v, bias, scale, g)
     torch.cuda.synchronize()
-    assert global_attention_backward.launches == before + 1
+    assert kernel_ops.launches()["global_attention_backward"] == before + 1
     for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
         if w is None:
             assert a is None, name
@@ -452,9 +454,9 @@ def test_global_attention_backward_skips_dbias_when_the_bias_is_frozen(card):
         np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), atol=3e-5, rtol=3e-5)
     # through autograd: a frozen bias gets no gradient, the others do
     q.requires_grad_(), k.requires_grad_(), v.requires_grad_()
-    before = global_attention_backward.launches
+    before = kernel_ops.launches()["global_attention_backward"]
     global_attention(q, k, v, bias, 0.25).backward(g)
-    assert global_attention_backward.launches == before + 1
+    assert kernel_ops.launches()["global_attention_backward"] == before + 1
     assert bias.grad is None
     np.testing.assert_allclose(q.grad.cpu().numpy(), want[0].cpu().numpy(), atol=3e-5, rtol=3e-5)
 
@@ -489,26 +491,27 @@ def test_global_attention_function_passes_a_finite_difference_check(card, with_b
         2, 2, 65, 16, torch.float32 if with_bias else None, torch.float32, card
     )
     inputs = (q, k, v, bias) if with_bias else (q, k, v)
-    before = global_attention_backward.launches
+    before = kernel_ops.launches()["global_attention_backward"]
 
     def fn(q_, k_, v_, b_=None):
         return global_attention(q_, k_, v_, b_, 0.25)
 
     _directional_check(fn, inputs, seed=2)
-    assert global_attention_backward.launches == before + 1
+    assert kernel_ops.launches()["global_attention_backward"] == before + 1
 
 
 @pytest.mark.parametrize("nW", [None, 4])
 def test_window_attention_function_passes_a_finite_difference_check(card, nW):
     """K1 forward with its recompute backward: dq, dk, dv, dtau and dB."""
     q, k, v, scale, bias, mask = _attn_inputs(8, 2, 16, 16, nW, torch.float32, card)
-    before = window_attention.launches
+    before = kernel_ops.launches()["window_attention"]
 
     def fn(q_, k_, v_, s_, b_):
         return window_attention(q_, k_, v_, s_, b_, mask)
 
     _directional_check(fn, (q, k, v, scale, bias), seed=3)
-    assert window_attention.launches == before + 3  # forwards only: the backward launches none
+    # forwards only: the backward launches none
+    assert kernel_ops.launches()["window_attention"] == before + 3
 
 
 @pytest.mark.parametrize("case", ["random", "strided", "batch_folded", "dropped"])
@@ -518,10 +521,10 @@ def test_segment_sum_backward_is_the_plain_gather(card, case):
     lin, vals, _, S = _segment_problem(case, card)
     vals = vals.clone().nan_to_num_().requires_grad_()
     cot = torch.randn(S, vals.shape[-1], device=card)
-    before = segment_sum_backward.launches
+    before = kernel_ops.launches()["segment_sum_backward"]
     segment_sum(lin, vals, S).backward(cot)
     torch.cuda.synchronize()
-    assert segment_sum_backward.launches == before + 1
+    assert kernel_ops.launches()["segment_sum_backward"] == before + 1
     want = segment_sum_backward_plain(lin, cot)
     assert vals.grad.shape == vals.shape
     assert torch.equal(vals.grad.reshape(-1, vals.shape[-1]), want)
@@ -614,10 +617,10 @@ ROUTES = [(torch.float32, None), (torch.float32, 8), (torch.float32, 4), (torch.
 def test_fused_rcu_kernel_matches_plain(no_tf32, dtype, B, H, W, C, scale, tile):
     x, w1, b1, w2, b2, _, _ = _decoder_inputs(B, H, W, C, no_tf32, scale=scale)
     x = x.to(dtype)
-    before = fused_rcu.launches
+    before = kernel_ops.launches()["fused_rcu"]
     got = fused_rcu(x, w1, b1, w2, b2, tile=tile)
     torch.cuda.synchronize()
-    assert fused_rcu.launches == before + 1
+    assert kernel_ops.launches()["fused_rcu"] == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     _close(got, fused_rcu_plain(x, w1, b1, w2, b2), DECODER_F32_TOL["rcu"])
 
@@ -632,10 +635,10 @@ def test_fused_rcu_tail_kernel_matches_plain(no_tf32, dtype, B, H, W, C, scale, 
         with pytest.raises(ValueError, match="shared memory"):
             fused_rcu_tail(s, w1, b1, w2, b2, wo, bo, tile=tile)
         return
-    before = fused_rcu_tail.launches
+    before = kernel_ops.launches()["fused_rcu_tail"]
     got = fused_rcu_tail(s, w1, b1, w2, b2, wo.reshape(1, 1, C, C), bo, tile=tile)
     torch.cuda.synchronize()
-    assert fused_rcu_tail.launches == before + 1
+    assert kernel_ops.launches()["fused_rcu_tail"] == before + 1
     assert got.dtype == dtype and got.shape == (B, 2 * H, 2 * W, C)
     _close(got, fused_rcu_tail_plain(s, w1, b1, w2, b2, wo, bo), DECODER_F32_TOL["tail"])
 
@@ -683,8 +686,6 @@ def test_prepare_converts_any_weight_layout_and_zeroes_the_counters(card, lib_na
     """The bf16 route's one preparation launch against PyTorch's own cast:
     a module's OIHW weight seen as HWIO, a contiguous HWIO f32 weight, a
     bf16 one, and a transposed (C, C) 1x1 weight; the counters end at 0."""
-    from soccdpt_torch.kernels import _build
-
     g = torch.Generator(device=card).manual_seed(C)
     oihw = torch.randn(C, C, 3, 3, device=card, generator=g)
     weights = [oihw.permute(2, 3, 1, 0), torch.randn(3, 3, C, C, device=card, generator=g),
@@ -694,7 +695,7 @@ def test_prepare_converts_any_weight_layout_and_zeroes_the_counters(card, lib_na
     scratch = _conv.Scratch([_conv.plan_conv(1, 8, 8, 256, 9)], card)
     scratch.counters.fill_(5)
     like = torch.zeros(1, 1, 1, C, device=card, dtype=torch.bfloat16)
-    outs = _conv.prepare_bf16(_build.load(lib_name), like, weights, scratch)
+    outs = _conv.prepare_bf16(lib_name, like, weights, scratch)
     torch.cuda.synchronize()
     for w, got in zip(weights, outs):
         want = w.to(torch.bfloat16).reshape(-1, C, C)
@@ -767,10 +768,10 @@ def test_decoder_kernels_keep_the_border_at_zero_padding(no_tf32, kernel, dtype)
 def test_fused_head_tail_kernel_matches_plain(no_tf32, dtype, B, H, W, Ci, Cm):
     x, w2, b2, w3, b3 = _head_inputs(B, H, W, Ci, Cm, no_tf32)
     x = x.to(dtype)
-    before = fused_head_tail.launches
+    before = kernel_ops.launches()["fused_head_tail"]
     got = fused_head_tail(x, w2, b2, w3, b3)
     torch.cuda.synchronize()
-    assert fused_head_tail.launches == before + 1
+    assert kernel_ops.launches()["fused_head_tail"] == before + 1
     assert got.dtype == dtype and got.shape == (B, 2 * H, 2 * W)
     _close(got, fused_head_tail_plain(x, w2, b2, w3, b3), DECODER_F32_TOL["head"],
            rtol=DECODER_F32_TOL["head"])
@@ -800,9 +801,9 @@ def test_fused_head_tail_gradient_is_the_plain_versions(no_tf32):
     inputs[3] = inputs[3].reshape(1, 1, 8, 1)  # the (1, 1, Cm, 1) form of w3
     g = torch.randn(2, 16, 24, device=no_tf32, generator=torch.Generator(no_tf32).manual_seed(0))
     leaves = [t.clone().requires_grad_() for t in inputs]
-    before = fused_head_tail.launches
+    before = kernel_ops.launches()["fused_head_tail"]
     fused_head_tail(*leaves).backward(g)
-    assert fused_head_tail.launches == before + 1
+    assert kernel_ops.launches()["fused_head_tail"] == before + 1
     plain = [t.clone().requires_grad_() for t in inputs]
     fused_head_tail_plain(*plain).backward(g)
     for name, a, b in zip(("x", "w2", "b2", "w3", "b3"), leaves, plain):
@@ -822,7 +823,7 @@ def test_forward_only_decoder_kernels_refuse_a_gradient(card):
         assert fused_rcu(s, w1, b1, w2, b2).shape == s.shape
 
 
-# --- K1 and K6 as custom ops, and an exported program on the card --------------
+# --- every kernel as a custom op, and an exported program on the card ----------
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -832,9 +833,9 @@ def test_window_attention_op_passes_opcheck_on_the_card(card, dtype, nW):
 
     args = _attn_inputs(8, 2, 16, 16, nW, dtype, card)
     opcheck(torch.ops.soccdpt.window_attention.default, args)
-    before = window_attention.launches
+    before = kernel_ops.launches()["window_attention"]
     out = torch.ops.soccdpt.window_attention(*args)
-    assert window_attention.launches == before + 1
+    assert kernel_ops.launches()["window_attention"] == before + 1
     torch.testing.assert_close(out.float(), window_attention_plain(*args).float(),
                                atol=2e-5 if dtype == torch.float32 else 5e-2, rtol=0)
 
@@ -850,12 +851,71 @@ def test_global_attention_ops_pass_opcheck_on_the_card(card, dtype, biased):
     args = (q, k, v, bias, 0.125)
     opcheck(torch.ops.soccdpt.global_attention.default, args)
     opcheck(torch.ops.soccdpt.global_attention_with_lse.default, args)
-    before = global_attention.launches
+    before = kernel_ops.launches()["global_attention_with_lse"]
     out, lse = torch.ops.soccdpt.global_attention_with_lse(*args)
-    assert global_attention.launches == before + 1 and lse.shape == (2, 4, 200)
+    assert kernel_ops.launches()["global_attention_with_lse"] == before + 1
+    assert lse.shape == (2, 4, 200)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), global_attention_plain(*args).float(),
                                atol=tol, rtol=tol)
+    # K7, from the forward's output and log-sum-exp
+    gout = torch.randn(2, 4, 200, 64, device=card, generator=g).to(dtype)
+    backward = (q, k, v, bias, out, lse, gout, 0.125, biased)
+    opcheck(torch.ops.soccdpt.global_attention_backward.default, backward)
+    before = kernel_ops.launches()["global_attention_backward"]
+    got = torch.ops.soccdpt.global_attention_backward(*backward)
+    assert kernel_ops.launches()["global_attention_backward"] == before + 1
+    tol = K7_F32_TOL if dtype == torch.float32 else K7_BF16_TOL
+    want = global_attention_backward_plain(q, k, v, bias, 0.125, gout)
+    for a, w in zip(got, want if biased else want[:3]):
+        torch.testing.assert_close(a.float(), w.float(), atol=tol, rtol=tol)
+    assert biased or got[3].numel() == 0
+
+
+def _small_op_case(name, dtype, card):
+    """(the op's arguments, its plain version's output) at a small shape."""
+    rng = np.random.default_rng(5)
+    if name.startswith("segment_sum"):
+        S = 64
+        lin = torch.from_numpy(rng.integers(-8, S + 8, 1400).astype(np.int32)).to(card)
+        if name == "segment_sum":
+            vals = torch.from_numpy(rng.uniform(size=(2, 700, 3)).astype(np.float32)).to(card)
+            return (lin, vals, S), segment_sum_plain(lin, vals, S)
+        cot = torch.from_numpy(rng.standard_normal((S, 3)).astype(np.float32)).to(card)
+        return (lin, cot), segment_sum_backward_plain(lin, cot)
+    if name == "fused_head_tail":
+        x, w2, b2, w3, b3 = _head_inputs(2, 8, 12, 16, 8, card)
+        args = (x.to(dtype), w2, b2, w3, b3.reshape(1))
+        return args, fused_head_tail_plain(*args)
+    s, w1, b1, w2, b2, wo, bo = _decoder_inputs(2, 8, 12, 16, card)
+    if name == "fused_rcu":
+        return (s.to(dtype), w1, b1, w2, b2, None), fused_rcu_plain(s.to(dtype), w1, b1, w2, b2)
+    return ((s.to(dtype), w1, b1, w2, b2, wo, bo, None),
+            fused_rcu_tail_plain(s.to(dtype), w1, b1, w2, b2, wo, bo))
+
+
+@pytest.mark.parametrize("name,dtype", [
+    ("segment_sum", torch.float32), ("segment_sum_backward", torch.float32),
+    *[(n, d) for n in ("fused_rcu", "fused_rcu_tail", "fused_head_tail")
+      for d in (torch.float32, torch.bfloat16)]])
+def test_k2_to_k5_ops_pass_opcheck_on_the_card(no_tf32, name, dtype):
+    """K2's two ops and K3-K5's: ``opcheck`` of their CUDA implementations,
+    one counted launch a call, the plain versions' results."""
+    from torch.library import opcheck
+
+    op = getattr(torch.ops.soccdpt, name).default
+    args, want = _small_op_case(name, dtype, no_tf32)
+    opcheck(op, args)
+    before = kernel_ops.launches()[name]
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert kernel_ops.launches()[name] == before + 1
+    if name.startswith("segment_sum"):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:  # each kernel's own bounds (bf16: DECODER_BF16_TOL)
+        tol = DECODER_F32_TOL[{"fused_rcu": "rcu", "fused_rcu_tail": "tail",
+                               "fused_head_tail": "head"}[name]]
+        _close(got, want, tol, rtol=tol if name == "fused_head_tail" else 0.0)
 
 
 def test_exported_flagship_launches_k1_and_equals_eager(card, tmp_path):
@@ -873,9 +933,9 @@ def test_exported_flagship_launches_k1_and_equals_eager(card, tmp_path):
         g = torch.Generator(device=card).manual_seed(batch)
         x = torch.randn(batch, 3, 256, 256, device=card, generator=g)
         with torch.no_grad():
-            before = window_attention.launches
+            before = kernel_ops.launches()["window_attention"]
             got = program(x)
-            launched = window_attention.launches - before
+            launched = kernel_ops.launches()["window_attention"] - before
             want = model(x, return_raw=True)
         assert launched == 12
         assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -26,8 +26,7 @@ from soccdpt_tpu.models.soccdpt import build_model as jax_build_model
 from soccdpt_tpu.serving import make_serving_fn as jax_make_serving_fn
 
 from soccdpt_torch.core.config import CameraConfig, ModelConfig, OccupancyConfig
-from soccdpt_torch.kernels.segment_sum import segment_sum
-from soccdpt_torch.kernels.window_attention import window_attention
+from soccdpt_torch.kernels import ops as kernel_ops
 from soccdpt_torch.models.soccdpt import SOccDPT_V3, build_model
 from soccdpt_torch.serving import make_serving_fn
 from soccdpt_torch.weights import load_jax_variables
@@ -61,9 +60,10 @@ def stacks():
 def test_serving_matches_jax(stacks, compute_occ):
     jcfg, cfg, variables, model, frames = stacks
     want = jax_make_serving_fn(jcfg, variables, compute_occ=compute_occ)(jnp.asarray(frames))
-    launches = window_attention.launches, segment_sum.launches
+    kernels = ("window_attention", "segment_sum")
+    launches = [kernel_ops.launches()[k] for k in kernels]
     got = make_serving_fn(cfg, model, compute_occ=compute_occ, device="cpu")(frames)
-    assert (window_attention.launches, segment_sum.launches) == launches  # CPU: plain versions
+    assert [kernel_ops.launches()[k] for k in kernels] == launches  # CPU: plain versions
 
     shapes = [(2, 48, 64), (2, 3, 48, 64), (2, 48, 64, 3)]
     for g, w, shape, atol, name in zip(

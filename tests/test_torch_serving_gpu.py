@@ -28,8 +28,7 @@ import pytest
 import torch
 
 from soccdpt_torch.core.config import MODEL_TYPES, CameraConfig, ModelConfig, OccupancyConfig
-from soccdpt_torch.kernels.global_attention import global_attention
-from soccdpt_torch.kernels.segment_sum import segment_sum
+from soccdpt_torch.kernels import ops
 from soccdpt_torch.models.soccdpt import build_model
 from soccdpt_torch.serving import GraphedFunction, make_serving_fn, serve_stream
 from soccdpt_torch.utils import spans
@@ -185,9 +184,9 @@ def test_hybrid_served_on_the_card_matches_the_cpu(card, compute_occ):
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         got = make_serving_fn(cfg, model, compute_occ=compute_occ)(f)
-        before = global_attention.launches
+        before = ops.launches()["global_attention"]
         eager = make_serving_fn(cfg, model, compute_occ=compute_occ, graph=False)(f)
-        assert global_attention.launches - before == 2
+        assert ops.launches()["global_attention"] - before == 2
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     assert_same(got, eager)
@@ -221,9 +220,9 @@ def test_last_three_families_served_on_the_card_match_the_cpu(card, model_type):
     torch.backends.cudnn.deterministic = True
     try:
         got = make_serving_fn(cfg, model, compute_occ=True)(f)
-        before = segment_sum.launches
+        before = ops.launches()["segment_sum"]
         eager = make_serving_fn(cfg, model, compute_occ=True, graph=False)(f)
-        assert segment_sum.launches - before == 1
+        assert ops.launches()["segment_sum"] - before == 1
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
         torch.backends.cudnn.deterministic = deterministic

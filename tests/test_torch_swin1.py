@@ -69,8 +69,7 @@ from soccdpt_tpu.serving import make_serving_fn as jax_make_serving_fn
 from soccdpt_torch.core.config import MODEL_TYPES, CameraConfig, ModelConfig, OccupancyConfig
 from soccdpt_torch.core.config import TrainConfig
 from soccdpt_torch.data.synthetic import make_batch
-from soccdpt_torch.kernels.segment_sum import segment_sum
-from soccdpt_torch.kernels.window_attention import window_attention
+from soccdpt_torch.kernels import ops as kernel_ops
 from soccdpt_torch.models.backbones import make_backbone
 from soccdpt_torch.models.backbones.swin2 import shifted_window_attn_mask
 from soccdpt_torch.models.soccdpt import SOccDPT_versions, build_model
@@ -253,9 +252,10 @@ def check_served(model_type, version, tweak=None):
     serving functions, held to the ladder."""
     jcfg, cfg, variables, model, frames = served_stacks(model_type, version, tweak=tweak)
     want = jax_make_serving_fn(jcfg, variables, compute_occ=True)(jnp.asarray(frames))
-    counts = window_attention.launches, segment_sum.launches
+    kernels = ("window_attention", "segment_sum")
+    counts = [kernel_ops.launches()[k] for k in kernels]
     got = make_serving_fn(cfg, model, compute_occ=True, device="cpu")(frames)
-    assert counts == (window_attention.launches, segment_sum.launches)  # CPU: plain versions
+    assert counts == [kernel_ops.launches()[k] for k in kernels]  # CPU: plain versions
     shapes = [(2, 48, 64), (2, 3, 48, 64), (2, 48, 64, 3)]
     for g, w, shape, atol, name in zip(
         got[:3], want[:3], shapes, (1e-4, 1e-4, 5e-3), ("inv_depth", "seg", "points")

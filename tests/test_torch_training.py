@@ -47,7 +47,7 @@ from soccdpt_tpu.train.trainer import make_optimizer as jax_make_optimizer
 
 from soccdpt_torch.core.config import MODEL_TYPES, ModelConfig, TrainConfig
 from soccdpt_torch.data.synthetic import make_batch
-from soccdpt_torch.kernels.global_attention import global_attention_backward
+from soccdpt_torch.kernels import ops as kernel_ops
 from soccdpt_torch.models.dpt import ResidualConvUnit
 from soccdpt_torch.models.heads import SegHead
 from soccdpt_torch.train.patchwise import (
@@ -238,10 +238,10 @@ def test_v3_loss_and_gradients_match_jax(family):
 
     model = trainer.model.eval()
     select_trainable(model, trainer.masks[0])
-    backwards = global_attention_backward.launches
+    backwards = kernel_ops.launches()["global_attention_backward"]
     loss, aux = trainer.loss(trainer.to_device_batch(batch))
     loss.backward()
-    assert global_attention_backward.launches == backwards  # CPU: the plain backward
+    assert kernel_ops.launches()["global_attention_backward"] == backwards  # CPU: plain
     np.testing.assert_allclose(float(loss.detach()), float(want), rtol=LOSS_RTOL)
     assert set(aux) == {"loss_disp", "loss_seg"}
     assert all(p.grad is not None for _, p in named_flax_params(model))

@@ -160,13 +160,13 @@ def test_the_cpu_takes_the_plain_path_through_the_module_s_functions(monkeypatch
     monkeypatch.setattr(geometry, "unproject_depth", unproject)
     monkeypatch.setattr(geometry, "segment_sum", segment_sum)
     monkeypatch.setattr(geometry, "unproject_slots", op)
-    fallbacks = us.unproject_slots.fallbacks
+    fallbacks = ops.fallbacks()["unproject_slots"]
     seg = torch.rand(2, 3, 12, 16)
     out = geometry.get_semantic_occupancy(torch.rand(2, 12, 16) * 0.5 + 0.1, seg, CAM, TILTED,
                                           3, compute_occ=True)
     assert calls == ["unproject_depth", "segment_sum"]
     assert out[2].shape == (2, 48, 64, 3) and out[3].shape == (2, 16, 16, 8, 3)
-    assert us.unproject_slots.fallbacks == fallbacks
+    assert ops.fallbacks()["unproject_slots"] == fallbacks
 
 
 def test_a_recorded_input_takes_the_plain_path_and_its_gradient_flows():
@@ -220,8 +220,6 @@ def test_a_card_call_takes_the_op_and_k2_or_counts_a_fallback(monkeypatch, compu
         slot = inv.new_empty((B * H * W,), dtype=torch.int32) if slots else None
         return inv.new_empty((B, H, W, 3)), slot
 
-    op.fallbacks = 0
-
     def segment_sum(lin, vals, num_slots):
         summed.append((tuple(lin.shape), tuple(vals.shape), num_slots))
         return vals.new_empty((num_slots, vals.shape[-1]))
@@ -233,6 +231,7 @@ def test_a_card_call_takes_the_op_and_k2_or_counts_a_fallback(monkeypatch, compu
     monkeypatch.setattr(geometry, "unproject_slots", op)
     monkeypatch.setattr(geometry, "segment_sum", segment_sum)
     monkeypatch.setattr(geometry, "camera_frame_points", plain)
+    fallbacks = ops.fallbacks()["unproject_slots"]
     with FakeTensorMode(), torch.no_grad():
         out = geometry.get_semantic_occupancy(
             torch.empty(2, 12, 16, device="cuda"), torch.empty(2, 3, 12, 16, device="cuda"),
@@ -248,17 +247,16 @@ def test_a_card_call_takes_the_op_and_k2_or_counts_a_fallback(monkeypatch, compu
     assert summed == ([((2 * 24 * 32,), (2, 24 * 32, 3), 2 * cells)] if compute_occ else [])
     if compute_occ:
         assert out[3].shape == (2, *TILTED.grid_size, 3)
-    assert op.fallbacks == 1
+    assert ops.fallbacks()["unproject_slots"] == fallbacks + 1
 
 
 def test_the_counters():
     """``launches()`` shows the kernel; a CPU call of the op launches
-    nothing; ``fallbacks()`` stays the upsample's count."""
+    nothing; ``fallbacks()`` counts the geometry tail's beside the upsample's."""
     assert "unproject_slots" in ops.launches() and hasattr(torch.ops.soccdpt, "unproject_slots")
-    assert ops.COUNTERS["unproject_slots"] is us.unproject_slots
     before = ops.launches()
     _op(_inverse_depth(1, 6, 10), CAM, TILTED)
     assert ops.launches() == before
-    assert ops.fallbacks() == ops.upsample2x.fallbacks
+    assert set(ops.fallbacks()) == {"upsample2x", "unproject_slots"}
     assert us.tail_bytes(6, 1080, 1920) == 6 * 1080 * 1920 * 20
     assert us.tail_bytes(6, 1080, 1920, slots=False) == 6 * 1080 * 1920 * 16

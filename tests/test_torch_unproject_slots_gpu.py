@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from soccdpt_torch.core.config import CameraConfig, ModelConfig, OccupancyConfig
+from soccdpt_torch.kernels import ops
 from soccdpt_torch.kernels import unproject_slots as us
 from soccdpt_torch.kernels.segment_sum import segment_sum
 from soccdpt_torch.ops import geometry
@@ -79,16 +80,22 @@ def _bits(t):
     return t.contiguous().view(torch.int32)
 
 
+
+def _counts():
+    """(the geometry op's launches, the geometry tail's fallbacks) so far."""
+    return ops.launches()["unproject_slots"], ops.fallbacks()["unproject_slots"]
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_the_1080p_tail_of_each_configuration_matches_the_plain_path(card, name):
     cam, occ = _configs(name)
     inv = _inverse_depth(card, (B, H, W))
-    before = us.unproject_slots.launches
+    before = ops.launches()["unproject_slots"]
     with torch.no_grad():
         points, slot = us.unproject_slots(inv, cam, occ, True)
         want_points, want_slot = _plain(inv, cam, occ)
     torch.cuda.synchronize()
-    assert us.unproject_slots.launches == before + 1
+    assert ops.launches()["unproject_slots"] == before + 1
     assert points.shape == (B, H, W, 3) and slot.shape == (B * H * W,)
     assert slot.dtype == torch.int32 and points.is_contiguous()
     assert torch.equal(_bits(points), _bits(want_points))
@@ -154,11 +161,10 @@ def test_a_recorded_tail_keeps_the_plain_path_and_its_gradient(card):
     cam, occ = _configs("swin2t256")
     inv = (torch.rand(1, 8, 8, device=card) * 0.5 + 0.1).requires_grad_(True)
     seg = torch.rand(1, C, 8, 8, device=card, requires_grad=True)
-    launches, fallbacks = us.unproject_slots.launches, us.unproject_slots.fallbacks
+    launches, fallbacks = _counts()
     out = geometry.get_semantic_occupancy(inv, seg, cam, occ, C, compute_occ=True,
                                           output_size=(16, 24))
-    assert (us.unproject_slots.launches, us.unproject_slots.fallbacks) == (launches,
-                                                                           fallbacks + 1)
+    assert _counts() == (launches, fallbacks + 1)
     (out[2].sum() + out[3].sum()).backward()
     assert inv.grad is not None and bool(torch.isfinite(inv.grad).all())
     assert seg.grad is not None and float(seg.grad.abs().sum()) > 0
@@ -188,7 +194,7 @@ def test_a_served_grid_request_as_a_cuda_graph(card):
     eager = make_serving_fn(cfg, model, compute_occ=True, graph=False)
     graph = make_serving_fn(cfg, model, compute_occ=True)
     assert isinstance(graph, GraphedFunction)
-    us.unproject_slots.launches = us.unproject_slots.fallbacks = 0
+    launches, fallbacks = _counts()
     for seed in range(3):
         frames = torch.randint(0, 256, (B, H, W, 3), dtype=torch.uint8,
                                generator=torch.Generator().manual_seed(seed))
@@ -196,13 +202,12 @@ def test_a_served_grid_request_as_a_cuda_graph(card):
         got = graph(frames)
         torch.cuda.synchronize()
         if seed == 0:
-            assert us.unproject_slots.launches == 1 + 2  # eager, then warm-up and capture
+            assert _counts()[0] - launches == 1 + 2  # eager, then warm-up and capture
         for g, w, what in zip(got[:3], want[:3], ("inv_depth", "seg", "points")):
             assert torch.equal(g, w), what
         torch.testing.assert_close(got[3], want[3], rtol=GRID_TOL, atol=GRID_TOL)
         assert float(want[3].sum()) > 0
-    assert us.unproject_slots.launches == 3 + 2  # two more eager requests, no replay
-    assert us.unproject_slots.fallbacks == 0
+    assert _counts() == (launches + 3 + 2, fallbacks)  # two more eager requests, no replay
 
 
 def test_the_exported_flagship_with_points_calls_the_op_once(card, tmp_path):
@@ -223,12 +228,11 @@ def test_the_exported_flagship_with_points_calls_the_op_once(card, tmp_path):
     build_inference_cache(eager.eval())
     x = torch.randn(2, 3, 256, 256, device=card,
                     generator=torch.Generator(device=card).manual_seed(4))
-    launches, fallbacks = us.unproject_slots.launches, us.unproject_slots.fallbacks
+    launches, fallbacks = _counts()
     with torch.no_grad():
         got = module(x)
         want = eager(x, compute_occ=False)[:3]
-    assert us.unproject_slots.launches == launches + 2
-    assert us.unproject_slots.fallbacks == fallbacks
+    assert _counts() == (launches + 2, fallbacks)
     # bit for bit, or within the ladder of tests/test_composition_oracle.py
     for g, w, tol in zip(got, want, EXPORT_LADDER):
         assert g.shape == w.shape

@@ -13,7 +13,7 @@ import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.library import opcheck
 
-from soccdpt_torch.kernels import ops, upsample as up
+from soccdpt_torch.kernels import _build, ops, upsample as up
 from soccdpt_torch.ops import resize
 
 
@@ -24,8 +24,12 @@ def _stub():
         B, H, W, C = x.shape
         return x.new_empty((B, 2 * H, 2 * W, C))
 
-    stub.calls, stub.fallbacks = 0, 0
+    stub.calls = 0
     return stub
+
+
+def _fallbacks():
+    return ops.fallbacks()["upsample2x"]
 
 
 def _nhwc(device, dtype=torch.bfloat16, shape=(2, 8, 12, 16), requires_grad=False):
@@ -64,6 +68,7 @@ def test_the_dispatch_rule_on_the_card(monkeypatch, case, make, size, method, al
 
     monkeypatch.setattr(resize, "upsample2x", stub)
     monkeypatch.setattr(resize, "_interpolate", interpolate)
+    fallbacks = _fallbacks()
     with FakeTensorMode(), torch.no_grad():
         x = make("cuda")
         # the rule reads the grad mode; autograd itself stays off, since
@@ -73,7 +78,7 @@ def test_the_dispatch_rule_on_the_card(monkeypatch, case, make, size, method, al
         out = resize.resize_hw(x, size, method, align)
         monkeypatch.undo()
     assert (stub.calls, len(interpolated)) == (int(kernel), int(not kernel))
-    assert stub.fallbacks == int(fallback)
+    assert _fallbacks() - fallbacks == int(fallback)
     assert tuple(out.shape) == (x.shape[0], *size, x.shape[3])
 
 
@@ -81,16 +86,16 @@ def test_the_dispatch_rule_on_the_card(monkeypatch, case, make, size, method, al
 def test_the_cpu_goes_to_interpolate_unless_a_program_is_traced(monkeypatch, dtype):
     """Eager on the CPU: ``F.interpolate``, not counted as a fallback. While
     ``torch.export`` traces, a bf16 call becomes the op, as on the card."""
-    stub = _stub()
+    stub, fallbacks = _stub(), _fallbacks()
     monkeypatch.setattr(resize, "upsample2x", stub)
     x = torch.randn(2, 8, 12, 16).to(dtype)
     want = F.interpolate(x.permute(0, 3, 1, 2), size=(16, 24), mode="bilinear",
                          align_corners=True).permute(0, 2, 3, 1)
     assert torch.equal(resize.upsample2x_hw(x), want)
-    assert (stub.calls, stub.fallbacks) == (0, 0)
+    assert (stub.calls, _fallbacks()) == (0, fallbacks)
     monkeypatch.setattr(torch.compiler, "is_exporting", lambda: True)
     resize.upsample2x_hw(x)
-    assert (stub.calls, stub.fallbacks) == (int(dtype == torch.bfloat16), 0)
+    assert (stub.calls, _fallbacks()) == (int(dtype == torch.bfloat16), fallbacks)
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 12, 16), (1, 1, 1, 8), (3, 1, 7, 3), (2, 5, 1, 256),
@@ -122,7 +127,7 @@ CELL_CALLS = [(6, s, s, 256) for s in (8, 16, 32, 64, 128)] + [
 @pytest.mark.parametrize("B,H,W,C", CELL_CALLS)
 def test_the_band_plan_fills_the_card_or_walks_one_row(B, H, W, C):
     wide = C % 8 == 0
-    rows = up.plan_rows(B, H, W, C, H100_SMS, wide)
+    rows = up.plan_rows(B, H, W, C, wide)
 
     def ctas(r):
         return -(-2 * W * (C // 8 if wide else C) // up.THREADS) * -(-2 * H // r) * B
@@ -136,7 +141,8 @@ def test_the_band_plan_fills_the_card_or_walks_one_row(B, H, W, C):
 def test_the_cells_calls_take_the_swept_bands():
     """Bands of 4 rows from 16x16 maps up, 16 on the seg head's one-channel
     path; the backlog's 8x8 refinenet4 (48 CTAs at 4 rows) walks one."""
-    assert [up.plan_rows(6, s, s, 256, H100_SMS) for s in (8, 16, 32, 64, 128)] == [1, 4, 4, 4, 4]
-    assert up.plan_rows(6, 256, 256, 128, H100_SMS) == up.plan_rows(6, 128, 128, 128, H100_SMS) == 4
-    assert up.plan_rows(6, 256, 256, 3, H100_SMS, wide=False) == 16
+    assert _build.SMS == H100_SMS  # the planners' SM count
+    assert [up.plan_rows(6, s, s, 256) for s in (8, 16, 32, 64, 128)] == [1, 4, 4, 4, 4]
+    assert up.plan_rows(6, 256, 256, 128) == up.plan_rows(6, 128, 128, 128) == 4
+    assert up.plan_rows(6, 256, 256, 3, wide=False) == 16
     assert up.upsample_bytes(6, 128, 128, 256) == 50331648 * 5

@@ -18,6 +18,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from soccdpt_torch.kernels import ops
 from soccdpt_torch.kernels import upsample as up
 from soccdpt_torch.kernels.upsample import upsample2x
 
@@ -68,12 +69,12 @@ def _input(B, H, W, C, card, seed=0):
 def test_kernel_is_within_one_bf16_step_of_aten(card, H, W, C):
     B = 6 if (H, W, C) not in EDGE_CALLS else 2
     x = _input(B, H, W, C, card)
-    before = upsample2x.launches
+    before = ops.launches()["upsample2x"]
     with torch.no_grad():
         got = upsample2x(x)
     want = _aten(x)
     torch.cuda.synchronize()
-    assert upsample2x.launches == before + 1
+    assert ops.launches()["upsample2x"] == before + 1
     assert got.shape == want.shape and got.dtype == torch.bfloat16 and got.is_contiguous()
     steps, same = _steps(got, want)
     print(f"upsample {B}x{H}x{W}x{C}: bit for bit {same:.6f}, at most {steps} step(s)")
@@ -144,7 +145,6 @@ def test_a_served_request_of_each_benchmark_configuration(card, model_type):
     align_corners=True resize left to aten. As a CUDA graph: 6 kernel nodes
     of the upsample a request and no aten ``upsample_bilinear2d``."""
     from soccdpt_torch.core.config import ModelConfig
-    from soccdpt_torch.kernels import ops
     from soccdpt_torch.models.soccdpt import build_model
     from soccdpt_torch.serving import make_serving_fn
 
@@ -155,11 +155,11 @@ def test_a_served_request_of_each_benchmark_configuration(card, model_type):
     eager = make_serving_fn(mcfg, model, compute_occ=True, device=card, graph=False)
     eager(frames)
     torch.cuda.synchronize()
-    launches, fallbacks = ops.launches()["upsample2x"], ops.fallbacks()
+    launches, fallbacks = ops.launches()["upsample2x"], ops.fallbacks()["upsample2x"]
     eager(frames)
     torch.cuda.synchronize()
     assert ops.launches()["upsample2x"] - launches == 6
-    assert ops.fallbacks() == fallbacks
+    assert ops.fallbacks()["upsample2x"] == fallbacks
     graphed = make_serving_fn(mcfg, model, compute_occ=True, device=card, graph=True)
     graphed(frames)
     names = _kernel_names(lambda: graphed(frames))

@@ -30,9 +30,7 @@ from soccdpt_tpu.models.soccdpt import build_model as jax_build_model
 from soccdpt_tpu.serving import make_serving_fn as jax_make_serving_fn
 
 from soccdpt_torch.core.config import MODEL_TYPES, CameraConfig, ModelConfig, OccupancyConfig
-from soccdpt_torch.kernels.global_attention import global_attention
-from soccdpt_torch.kernels.segment_sum import segment_sum
-from soccdpt_torch.kernels.window_attention import window_attention
+from soccdpt_torch.kernels import ops as kernel_ops
 from soccdpt_torch.models.heads import SegHead
 from soccdpt_torch.models.soccdpt import (
     SOccDPT_V1,
@@ -101,11 +99,10 @@ def test_raw_outputs_match_jax(version, model_type):
 def test_serving_matches_jax(version, model_type, compute_occ):
     jcfg, cfg, _, variables, model, frames = _stacks(version, model_type)
     want = jax_make_serving_fn(jcfg, variables, compute_occ=compute_occ)(jnp.asarray(frames))
-    counts = global_attention.launches, window_attention.launches, segment_sum.launches
+    kernels = ("global_attention", "window_attention", "segment_sum")
+    counts = [kernel_ops.launches()[k] for k in kernels]
     got = make_serving_fn(cfg, model, compute_occ=compute_occ, device="cpu")(frames)
-    assert counts == (
-        global_attention.launches, window_attention.launches, segment_sum.launches
-    )  # CPU: plain versions
+    assert counts == [kernel_ops.launches()[k] for k in kernels]  # CPU: plain versions
 
     shapes = [(2, 48, 64), (2, 3, 48, 64), (2, 48, 64, 3)]
     for g, w, shape, atol, name in zip(

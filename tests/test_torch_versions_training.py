@@ -21,7 +21,7 @@ from soccdpt_tpu.models.soccdpt import build_model as jax_build_model
 
 from soccdpt_torch.core.config import ModelConfig, TrainConfig
 from soccdpt_torch.data.synthetic import make_batch
-from soccdpt_torch.kernels.window_attention import window_attention
+from soccdpt_torch.kernels import ops as kernel_ops
 from soccdpt_torch.train.patchwise import select_trainable
 from soccdpt_torch.train.trainer import Trainer
 from soccdpt_torch.weights import load_jax_variables, named_flax_params, to_jax_variables
@@ -69,10 +69,10 @@ def test_loss_and_gradients_match_jax(version):
     trainer.init_state(0)
     model = load_jax_variables(trainer.model, variables).eval()
     select_trainable(model, trainer.masks[0])
-    launches = window_attention.launches
+    launches = kernel_ops.launches()["window_attention"]
     loss, aux = trainer.loss(trainer.to_device_batch(batch))
     loss.backward()
-    assert window_attention.launches == launches  # CPU: the plain versions
+    assert kernel_ops.launches()["window_attention"] == launches  # CPU: the plain versions
     np.testing.assert_allclose(float(loss.detach()), float(want), rtol=LOSS_RTOL)
     assert set(aux) == {"loss_disp", "loss_seg"}
     assert all(p.grad is not None for _, p in named_flax_params(model))

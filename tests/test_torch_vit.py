@@ -35,9 +35,7 @@ from soccdpt_tpu.models.soccdpt import build_model as jax_build_model
 from soccdpt_tpu.serving import make_serving_fn as jax_make_serving_fn
 
 from soccdpt_torch.core.config import MODEL_TYPES, CameraConfig, ModelConfig, OccupancyConfig
-from soccdpt_torch.kernels.global_attention import global_attention
-from soccdpt_torch.kernels.segment_sum import segment_sum
-from soccdpt_torch.kernels.window_attention import window_attention
+from soccdpt_torch.kernels import ops as kernel_ops
 from soccdpt_torch.models.backbones import make_backbone
 from soccdpt_torch.models.backbones.vit import (
     VIT_CONFIGS,
@@ -98,10 +96,10 @@ def test_beit_features_match_the_jax_pallas_path():
     bb, variables, x = _jax_backbone("beittest_64", use_pallas=True)
     want = bb.apply(variables, jnp.asarray(x), deterministic=True)
     port = load_jax_variables(make_backbone("beittest_64")[0](), variables)
-    launches = global_attention.launches
+    launches = kernel_ops.launches()["global_attention"]
     with torch.no_grad():
         got = port(torch.from_numpy(x))
-    assert global_attention.launches == launches  # CPU tensors: the plain version
+    assert kernel_ops.launches()["global_attention"] == launches  # CPU tensors: the plain version
     for g, w in zip(got, want):
         np.testing.assert_allclose(to_np(g), np.asarray(w), atol=FEATURE_TOL, rtol=FEATURE_TOL)
 
@@ -321,11 +319,10 @@ def test_v3_raw_outputs_match_jax(stacks):
 def test_beit_serving_matches_jax(stacks, compute_occ):
     jcfg, cfg, _, variables, model, frames = stacks
     want = jax_make_serving_fn(jcfg, variables, compute_occ=compute_occ)(jnp.asarray(frames))
-    counts = global_attention.launches, window_attention.launches, segment_sum.launches
+    kernels = ("global_attention", "window_attention", "segment_sum")
+    counts = [kernel_ops.launches()[k] for k in kernels]
     got = make_serving_fn(cfg, model, compute_occ=compute_occ, device="cpu")(frames)
-    assert counts == (
-        global_attention.launches, window_attention.launches, segment_sum.launches
-    )  # CPU: plain versions
+    assert counts == [kernel_ops.launches()[k] for k in kernels]  # CPU: plain versions
 
     shapes = [(2, 48, 64), (2, 3, 48, 64), (2, 48, 64, 3)]
     for g, w, shape, atol, name in zip(

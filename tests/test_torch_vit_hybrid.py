@@ -34,7 +34,7 @@ from soccdpt_tpu.train import patchwise as jpw
 from soccdpt_torch.core.config import MODEL_TYPES, CameraConfig, ModelConfig, OccupancyConfig
 from soccdpt_torch.core.config import TrainConfig
 from soccdpt_torch.data.synthetic import make_batch
-from soccdpt_torch.kernels.global_attention import global_attention, global_attention_backward
+from soccdpt_torch.kernels import ops as kernel_ops
 from soccdpt_torch.models.backbones import make_backbone
 from soccdpt_torch.models.backbones.vit_hybrid import HYBRID_CONFIGS, same_pads
 from soccdpt_torch.models.soccdpt import build_model
@@ -78,10 +78,10 @@ def test_hybrid_features_match_jax(hw):
     want = bb.apply(variables, jnp.asarray(x))
     factory, chans = make_backbone("hybridtest_64")
     port = load_jax_variables(factory(), variables)
-    launches = global_attention.launches
+    launches = kernel_ops.launches()["global_attention"]
     with torch.no_grad():
         got = port(torch.from_numpy(x))
-    assert global_attention.launches == launches  # CPU tensors: the plain version
+    assert kernel_ops.launches()["global_attention"] == launches  # CPU tensors: the plain version
     assert chans == HYBRID_CONFIGS["hybridtest_64"].post_channels == (128, 256, 32, 32)
     assert [tuple(g.shape) for g in got] == [w.shape for w in want]
     for g, w in zip(got, want):
@@ -176,10 +176,10 @@ def test_dpt_hybrid_loss_and_gradients_match_jax(trained):
     model = trainer.model.eval()  # dropout off; no stochastic depth in this trunk
     select_trainable(model, trainer.masks[0])
     model.zero_grad(set_to_none=True)
-    backwards = global_attention_backward.launches
+    backwards = kernel_ops.launches()["global_attention_backward"]
     loss, _ = trainer.loss(trainer.to_device_batch(batch))
     loss.backward()
-    assert global_attention_backward.launches == backwards  # CPU: the plain backward
+    assert kernel_ops.launches()["global_attention_backward"] == backwards  # CPU: plain
     np.testing.assert_allclose(float(loss.detach()), float(want), rtol=LOSS_RTOL)
     assert all(p.grad is not None for _, p in named_flax_params(model))
     got = to_jax_variables(model, grads=True)["params"]

@@ -21,6 +21,7 @@ from soccdpt_tpu.ops.window_attention import (
     xla_reference,
 )
 
+from soccdpt_torch.kernels import ops as kernel_ops
 from soccdpt_torch.kernels.window_attention import (
     check_kernel_shape,
     window_attention,
@@ -109,10 +110,10 @@ def test_plain_bf16_io():
 
 def test_cpu_tensors_take_the_plain_version():
     arrays, mask = _inputs(with_mask=True)
-    before = window_attention.launches
+    before = kernel_ops.launches()["window_attention"]
     got = _port(arrays, mask)
     want = window_attention_plain(*(torch.from_numpy(a) for a in arrays), torch.from_numpy(mask))
-    assert window_attention.launches == before
+    assert kernel_ops.launches()["window_attention"] == before
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from soccdpt_torch.kernels import _build
+from soccdpt_torch.kernels import _build, ops
 from soccdpt_torch.kernels import global_attention as ga
 from soccdpt_torch.kernels import window_attention as wa
 
@@ -107,6 +107,12 @@ class _FakeLib:
         return Entry()
 
 
+def _on_the_card(op, *args):
+    """``op``'s CUDA implementation on CPU tensors, counted as a call on the
+    card is: the launcher reaches the fake library."""
+    return op.redispatch(torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA), *args)
+
+
 @pytest.fixture
 def fake(monkeypatch):
     lib = _FakeLib()
@@ -134,9 +140,9 @@ def _block_inputs(Bw, H, N, d, nW, tau_dtype):
 def test_a_bf16_call_takes_the_tensor_core_entry_with_its_views(fake, nW, tau_dtype):
     Bw, H, N, d = 8, 3, 64, 16
     q, k, v, tau, bias, mask = _block_inputs(Bw, H, N, d, nW, tau_dtype)
-    before = wa.window_attention.launches
-    out = wa._launch(q, k, v, tau, bias, mask)
-    assert wa.window_attention.launches == before + 1
+    before = ops.launches()["window_attention"]
+    out = _on_the_card(torch.ops.soccdpt.window_attention.default, q, k, v, tau, bias, mask)
+    assert ops.launches()["window_attention"] == before + 1
     (name, args), = fake.calls
     assert name == "soccdpt_window_attention_bf16"
     # q, k, v are read in place, through maps of the views' own strides
